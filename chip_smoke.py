@@ -8,18 +8,24 @@ Phases, in order; any failure exits non-zero and prints no result:
  1. device: the card's name and power limit (nvidia-smi), then a build of
     every CUDA source of the port with nvcc for sm_90a;
  2. kernels: each CUDA kernel against its plain PyTorch version on the
-    same inputs, at the shapes the 640x480 batch-8 main path gives it,
-    with its tolerance, its time (CUDA events) and its bound;
+    same inputs, at the shapes the 640x480 batch-8 paths give it, with
+    its tolerance, its time (CUDA events) and its bound;
  3. main path: SIFT(480, 640).extract_batch on 8 seeded noise frames (as
     bench.py makes them), with every launch counter set to 0 just before
     and read just after; frames/s from CUDA events;
- 4. IPOL parity: the butterfly fixture through SIFT(340, 512).extract on
+ 4. fast path: SIFT(480, 640, config=FAST_BF16_CONFIG).extract_batch on
+    the same frames and match_bruteforce over the 4 frame pairs, counters
+    set to 0 just before and read just after; then a 4096 x 131072 map
+    through the blocked matcher, and one extract_batch each under the
+    fused-cascade, lean-detection and fused-describe switches;
+ 5. IPOL parity: the butterfly fixture through SIFT(340, 512).extract on
     the card, held to the bounds of tests/test_detect.py and
-    tests/test_describe.py.
+    tests/test_describe.py; then the fast-preset gates: bf16 against fp32
+    keypoint agreement, and butterfly-vs-itself matching.
 
 The last two lines of standard output are the card's nvidia-smi line and
 ``{"ok": true, "device": {...}}``; the line before them lists every
-kernel with its launches on the main path, error, times and bound.
+kernel with its launches on the path that runs it, error, times and bound.
 """
 
 from __future__ import annotations
@@ -280,7 +286,202 @@ def phase_kernels(peaks):
     reports[rep.row["name"]] = rep
     print(f"[kernels] lanes: orientation {int(valid.sum())} valid of {valid.numel()}, "
           f"descriptor {int(dvalid.sum())} valid of {dvalid.numel()}", flush=True)
+    del dk, dp, hk, hp
+    _slice2_kernels(reports, peaks, gray, g0, d0, cd, fields, kpc, frame, ori_args, valid,
+                    n_ori_samples)
     return reports
+
+
+def _slice2_kernels(reports, peaks, gray, g0, d0, cd, fields, kpc, frame, ori_args, valid,
+                    n_ori_samples):
+    """The kernels of the fast-preset slice against their plain versions:
+    fused cascade, lean detection, fused orientation+descriptor and the
+    bf16-input band passes."""
+    import torch
+
+    from siftmetal_tpu_torch.config import FAST_BF16_CONFIG, SiftConfig
+    from siftmetal_tpu_torch.ops.image import decimate_2x
+    from siftmetal_tpu_torch.ops.kernels import blur as KB
+    from siftmetal_tpu_torch.ops.kernels import cascade as KC
+    from siftmetal_tpu_torch.ops.kernels import detect as KD
+    from siftmetal_tpu_torch.ops.kernels import patches as KP
+    from siftmetal_tpu_torch.ops.kernels import pyramid as KY
+    from siftmetal_tpu_torch.sift import describe as DS
+    from siftmetal_tpu_torch.sift.pyramid import cascade_slices, seed_image
+
+    cfg = SiftConfig()
+    b, h, w = gray.shape
+    H, W = g0.shape[-2:]
+    f4, f2 = 4.0, 2.0
+
+    def add(rep, err, abs_err=None):
+        rep.check(err, abs_err)
+        reports[rep.row["name"]] = rep
+
+    # --- fused cascade at the two octaves that take it (960x1280, 480x640)
+    rep = Report("octave_cascade", "siftmetal_tpu_torch/csrc/cascade.cu",
+                 "siftmetal_tpu/ops/pallas/cascade.py:52", 1e-5)
+    _, radii = KC.cascade_taps(cfg)
+    per_px = 4.0 * float((2 * radii + 1).sum()) + len(radii)
+    seed0 = seed_image(gray, cfg)                          # [8, 960, 1280]
+    gc, dc = KC.octave_cascade(seed0, cfg)
+    gp, dp = KC.octave_cascade_plain(seed0, cfg)
+    err = max(_max_err(gc, gp), _max_err(dc, dp))
+    del gp, dp
+    rep.row["ms"] = _time_ms(lambda: KC.octave_cascade(seed0, cfg), 5)
+    rep.row["plain_ms"] = _time_ms(lambda: KC.octave_cascade_plain(seed0, cfg), 1)
+    staged0 = _time_ms(lambda: cascade_slices(seed0, 0, cfg), 5)
+    rep.bound(f4 * (seed0.numel() + gc.numel() + dc.numel()), per_px * seed0.numel(), peaks)
+    seed1 = decimate_2x(gc[:, cfg.n_scales_per_octave], (h, w)).contiguous()
+    del gc, dc
+    g1c, d1c = KC.octave_cascade(seed1, cfg)
+    g1p, d1p = KC.octave_cascade_plain(seed1, cfg)
+    err = max(err, _max_err(g1c, g1p), _max_err(d1c, d1p))
+    ms1 = _time_ms(lambda: KC.octave_cascade(seed1, cfg), 10)
+    pl1 = _time_ms(lambda: KC.octave_cascade_plain(seed1, cfg), 2)
+    staged1 = _time_ms(lambda: cascade_slices(seed1, 0, cfg), 10)
+    bound1 = max(f4 * (seed1.numel() + g1c.numel() + d1c.numel()) / peaks[0],
+                 per_px * seed1.numel() / peaks[1]) * 1e3
+    print(f"[kernel] octave_cascade at {b}x{h}x{w}: {ms1:.4f} ms vs plain {pl1:.4f} ms; "
+          f"bound {bound1:.4f} ms; tile {KC.cascade_tile(cfg)}, total radius {int(radii.sum())}; "
+          f"the five blur_stack launches it replaces take {staged1:.4f} ms here and "
+          f"{staged0:.4f} ms at {b}x{H}x{W}, the row below", flush=True)
+    del g1c, d1c, g1p, d1p, seed0, seed1
+    add(rep, err)
+
+    # --- lean detection on octave 0, beside the full kernel ----------------
+    rep = Report("detect_candidates_lean", "siftmetal_tpu_torch/csrc/detect.cu",
+                 "siftmetal_tpu/ops/pallas/detect.py:51", 0.0)
+    thr = 0.8 * cfg.dog_threshold
+    cl = KD.detect_candidates(d0, thr, cfg.edge_threshold, emit_fields=False)
+    cpl = KD.detect_candidates_plain(d0, thr, cfg.edge_threshold, emit_fields=False)
+    for name in ("cand_col", "slot_ok", "n_raw", "n_soft", "n_row_dropped"):
+        _require(torch.equal(getattr(cl, name), getattr(cd, name)),
+                 f"detect_candidates_lean: {name} differs from the full kernel")
+        _require(torch.equal(getattr(cl, name), getattr(cpl, name)),
+                 f"detect_candidates_lean: {name} differs from the plain version")
+    lean = lambda: KD.detect_candidates(d0, thr, cfg.edge_threshold, emit_fields=False)
+    full = lambda: KD.detect_candidates(d0, thr, cfg.edge_threshold)
+    # lean, full, full, lean: the two forms timed in turns in one run.
+    t = [_time_ms(f, 10) for f in (lean, full, full, lean)]
+    rep.row["ms"] = 0.5 * (t[0] + t[3])
+    rep.row["plain_ms"] = _time_ms(
+        lambda: KD.detect_candidates_plain(d0, thr, cfg.edge_threshold, emit_fields=False), 2)
+    interior = b * (d0.shape[1] - 2) * (H - 2) * (W - 2)
+    rep.bound(f4 * d0.numel() + cl.cand_col.numel() * 5.0, 56.0 * interior, peaks)
+    print(f"[kernel] detect in turns (ms): lean {t[0]:.4f}, full {t[1]:.4f}, full {t[2]:.4f}, "
+          f"lean {t[3]:.4f}", flush=True)
+    add(rep, 0.0)
+
+    # --- fused orientation + descriptor on octave 0's keypoints ------------
+    rep = Report("orient_desc", "siftmetal_tpu_torch/csrc/patches.cu",
+                 "siftmetal_tpu/ops/pallas/patches.py:1593", 1e-4)
+    m = cfg.max_orientations_per_keypoint
+    fused = lambda: KP.orient_desc_lanes(fields, *ori_args, cfg, valid=valid, frame=frame)
+    raw, th, ov = fused()
+    rp, tp, ovp = KP.orient_desc_lanes_plain(fields, *ori_args, cfg, valid, frame)
+    hist = DS._smooth_circular(
+        DS.orientation_hist_plain(fields.gi, fields.gj, frame.long(), ori_args[0].long(),
+                                  *ori_args[1:], valid, cfg),
+        cfg.orientation_smoothing_iterations)
+    # Lanes whose peak sets differ must sit on a tie: some bin within 1e-6
+    # (relative to the lane's largest) of the 0.8 max threshold or of a
+    # neighbour.
+    hmax = hist.amax(1, keepdim=True).clamp(min=1e-30)
+    gap = torch.minimum(
+        (hist - cfg.orientation_peak_threshold * hmax).abs(),
+        torch.minimum((hist - hist.roll(1, 1)).abs(), (hist - hist.roll(-1, 1)).abs()),
+    ).amin(1) / hmax[:, 0]
+    differ = (ov != ovp).any(1)
+    _require(not bool((differ & (gap >= 1e-6)).any()),
+             "orient_desc: peak validity differs from the plain version away from any tie")
+    same = ~differ
+    cond = DS.peak_conditioning(hist, cfg)
+    th_tol = 1e-5 * torch.clamp(0.02 * cond, min=1.0)
+    th_err = (th - tp).abs()
+    _require(bool((th_err[same] <= th_tol[same]).all()),
+             f"orient_desc: theta differs by {float((th_err[same] / th_tol[same]).max()):.2f}x its "
+             f"tolerance (1e-5, scaled where max/|curvature| > 50)")
+    a, r = raw[same].reshape(-1, raw.shape[-1]), rp[same].reshape(-1, raw.shape[-1])
+    err = float(((a - r).abs().amax(1) / r.abs().amax(1).clamp(min=1e-12)).max())
+    qd = (DS.quantize_descriptors(a, cfg).int() - DS.quantize_descriptors(r, cfg).int()).abs()
+    _require(int(qd.max()) <= 1, "orient_desc: quantized descriptors differ by more than 1")
+    _require(bool((raw[~ov] == 0).all()) and bool((th[~ov] == 0).all()),
+             "orient_desc: missing peaks are not zero")
+    rep.row["ms"] = _time_ms(fused, 10)
+    rep.row["plain_ms"] = _time_ms(
+        lambda: KP.orient_desc_lanes_plain(fields, *ori_args, cfg, valid, frame), 1, 0)
+    rep4 = lambda t_: t_.repeat_interleave(m)
+    d_args = (rep4(ori_args[0]), rep4(ori_args[1]), rep4(ori_args[2]), rep4(ori_args[3]),
+              tp.reshape(-1))
+    n_desc = _rotated_samples(d_args, ovp.reshape(-1), H, W, cfg)
+    half = math.sqrt(2.0) * cfg.descriptor_lambda * (cfg.n_histograms_per_axis + 1) / cfg.n_histograms_per_axis
+    reach = half * ori_args[3]
+    _, cov = _box_samples(ori_args[1], ori_args[2], reach, reach, valid, frame, ori_args[0],
+                          H, W, b, cfg)
+    rep.bound(f4 * (2 * cov + 5 * valid.numel() + raw.numel() + 2 * th.numel()),
+              40.0 * n_ori_samples + 150.0 * n_desc, peaks)
+    print(f"[kernel] orient_desc: {int(valid.sum())} keypoints, {int(ovp.sum())} peaks; "
+          f"{int(differ.sum())} lanes differ in peak validity, all on a tie (gap < 1e-6); "
+          f"theta max err {float(th_err[same].max()):.3e} (largest share of its tolerance "
+          f"{float((th_err[same] / th_tol[same]).max()):.3f}); max peaks per keypoint "
+          f"{int(ovp.sum(1).max())}", flush=True)
+    add(rep, err, _max_err(a, r))
+    del raw, rp, a, r
+
+    # --- bf16-input band passes at the fast preset's shapes ----------------
+    fast = FAST_BF16_CONFIG
+    bf = torch.bfloat16
+    shapes = fast.octave_shapes(h, w, fast.num_octaves(h, w))
+    n = fast.n_scales_per_octave
+    gray16 = gray.to(bf)
+    rep = Report("seed_octave_bf16", "siftmetal_tpu_torch/csrc/pyramid.cu",
+                 "siftmetal_tpu/ops/pallas/pyramid.py:159", 1e-5)
+    _require(KY.seed_supports(fast, h, w), "the fast preset's octave 0 must take the fused seed")
+    g0f, d0f = KY.seed_octave(gray16, fast)
+    g0p, d0p = KY.seed_octave_plain(gray16, fast)
+    err = max(_max_err(g0f, g0p), _max_err(d0f, d0p))
+    tx, ty = KY.seed_tables(fast, h, w)
+    rep.row["ms"] = _time_ms(lambda: KY.seed_octave(gray16, fast), 10)
+    rep.row["plain_ms"] = _time_ms(lambda: KY.seed_octave_plain(gray16, fast), 2)
+    gray32 = gray16.float()
+    ms32 = _time_ms(lambda: KY.seed_octave(gray32, fast), 10)
+    rep.bound(f2 * gray16.numel() + f4 * (g0f.numel() + d0f.numel()),
+              _table_ops(b, h, w, tx) + _table_ops(b, h, w, ty) + d0f.numel(), peaks)
+    print(f"[kernel] seed_octave at {b}x{h}x{w}, same values as fp32 input: {ms32:.4f} ms", flush=True)
+    add(rep, err)
+
+    rep = Report("octave_oneshot_bf16", "siftmetal_tpu_torch/csrc/pyramid.cu",
+                 "siftmetal_tpu/ops/pallas/pyramid.py:159", 1e-5)
+    _require(KY.supports(fast, shapes[1][0]), "the fast preset's octave 1 must take the one-shot route")
+    first1 = decimate_2x(g0f[:, n].to(bf), shapes[1]).contiguous()
+    g1f, d1f = KY.octave_oneshot(first1, fast)
+    g1p, d1p = KY.octave_oneshot_plain(first1, fast)
+    _require(torch.equal(g1f[:, 0], first1.float()), "octave_oneshot_bf16: slice 0 is not the input")
+    err = max(_max_err(g1f, g1p), _max_err(d1f, d1p))
+    tx, ty = KY.oneshot_tables(fast, *shapes[1])
+    rep.row["ms"] = _time_ms(lambda: KY.octave_oneshot(first1, fast), 10)
+    rep.row["plain_ms"] = _time_ms(lambda: KY.octave_oneshot_plain(first1, fast), 2)
+    first1_32 = first1.float()
+    ms32 = _time_ms(lambda: KY.octave_oneshot(first1_32, fast), 10)
+    rep.bound(f2 * first1.numel() + f4 * (g1f.numel() + d1f.numel()),
+              _table_ops(b, *shapes[1], tx) + _table_ops(b, *shapes[1], ty) + d1f.numel(), peaks)
+    print(f"[kernel] octave_oneshot at {b}x{shapes[1][0]}x{shapes[1][1]}, same values as fp32 "
+          f"input: {ms32:.4f} ms", flush=True)
+    add(rep, err)
+
+    rep = Report("blur_stack_bf16", "siftmetal_tpu_torch/csrc/pyramid.cu",
+                 "siftmetal_tpu/ops/pallas/blur.py:34", 1e-5)
+    first2 = decimate_2x(g1f[:, n].to(bf), shapes[2]).contiguous()
+    rho = fast.incremental_sigmas(2)[0]
+    bx, by = KB.blur_tables(float(rho), *shapes[2])
+    plain = lambda: KY.band_y_plain(KY.band_x_plain(first2, bx, bf), by, None, False)[0][:, 0]
+    err = _max_err(KB.blur_stack(first2, rho), plain())
+    rep.row["ms"] = _time_ms(lambda: KB.blur_stack(first2, rho), 20)
+    rep.row["plain_ms"] = _time_ms(plain, 3)
+    rep.bound(f2 * first2.numel() + f4 * first2.numel(),
+              _table_ops(b, *shapes[2], bx) + _table_ops(b, *shapes[2], by), peaks)
+    add(rep, err)
 
 
 def _box_samples(x, y, rx, ry, valid, frame, scale, H, W, b, cfg):
@@ -332,73 +533,247 @@ def _rotated_samples(d_args, valid, H, W, cfg):
     return total
 
 
-def phase_main_path(reports, smi_line):
-    """SIFT(480, 640).extract_batch on 8 noise frames through the kernels."""
+PARITY_KERNELS = ("seed_octave", "octave_oneshot", "blur_stack", "detect_candidates",
+                  "orientation_hist", "descriptor_hist")
+OVERFLOWS = ("overflow", "descriptor_overflow", "keypoint_overflow")
+
+
+def _noise_frames(device):
     import numpy as np
     import torch
 
-    from siftmetal_tpu_torch import SIFT
+    rng = np.random.default_rng(0)
+    return torch.from_numpy(rng.uniform(0.0, 1.0, (8, 480, 640)).astype(np.float32)).to(device)
+
+
+def _drive(tag, sift, x, required, reports, after=None, may_overflow=False):
+    """One extract_batch (and ``after(descs)``, the rest of the path) with
+    every launch counter set to 0 just before and read just after. Fails
+    if a kernel in ``required`` was not launched, an output is malformed
+    or (unless ``may_overflow``: then they are only shown) a budget
+    overflowed. Returns (keypoints, descriptors, counters as
+    per-frame lists, launches)."""
+    import torch
+
     from siftmetal_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
-    rng = np.random.default_rng(0)
-    frames = rng.uniform(0.0, 1.0, (8, 480, 640)).astype(np.float32)
-    sift = SIFT(480, 640)
-    x = torch.from_numpy(frames).to(sift.device)
     sift.extract_batch(x)                    # warm-up: tables, allocator
     torch.cuda.synchronize()
     reset_launches()
     kps, descs, counters = sift.extract_batch(x)
+    extra = after(descs) if after is not None else None
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
-    for name, rep in reports.items():
-        rep.row["launches"] = launches[name]
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in required if launches[k] == 0]
     if missing:
-        raise AssertionError(f"main path never launched: {missing}")
-    # Outputs: shapes, dtypes, finite values, no overflow.
+        raise AssertionError(f"{tag}: path never launched {missing}; launches {launches}")
+    for name in required:
+        # A kernel that several paths run keeps the count of the first.
+        if reports[name].row["launches"] == 0:
+            reports[name].row["launches"] = launches[name]
     n = sift.config.max_descriptors
-    _require(descs.features.shape == (8, n, 128) and descs.features.dtype == torch.uint8,
-             f"descriptor features {tuple(descs.features.shape)} {descs.features.dtype}")
-    _require(kps.x.shape == (8, sift.config.max_keypoints), f"keypoints {tuple(kps.x.shape)}")
+    bsz = x.shape[0]
+    _require(descs.features.shape == (bsz, n, 128) and descs.features.dtype == torch.uint8,
+             f"{tag}: descriptor features {tuple(descs.features.shape)} {descs.features.dtype}")
+    _require(kps.x.shape == (bsz, sift.config.max_keypoints), f"{tag}: keypoints {tuple(kps.x.shape)}")
     for t in (kps.x, kps.y, kps.sigma, descs.x, descs.y, descs.sigma, descs.theta):
-        _require(bool(torch.isfinite(t).all()), "non-finite keypoint or descriptor values")
+        _require(bool(torch.isfinite(t).all()), f"{tag}: non-finite keypoint or descriptor values")
     ctr = {k: [int(v) for v in t.cpu()] for k, t in counters.items()}
-    for key in ("overflow", "descriptor_overflow", "keypoint_overflow"):
-        if any(ctr[key]):
-            raise AssertionError(f"main path overflow: {key}={ctr[key]}")
+    print(f"[{tag}] launches {json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+    print(f"[{tag}] counters (sum over {bsz} frames): "
+          f"{json.dumps({k: sum(v) for k, v in ctr.items()})}; overflow counters "
+          f"{json.dumps({k: ctr[k] for k in OVERFLOWS})}", flush=True)
+    for key in OVERFLOWS:
+        if any(ctr[key]) and not may_overflow:
+            raise AssertionError(f"{tag}: overflow {key}={ctr[key]}")
     if min(ctr["n_descriptors"]) <= 0:
-        raise AssertionError("main path returned no descriptors")
+        raise AssertionError(f"{tag}: no descriptors")
+    return kps, descs, ctr, launches, extra
+
+
+def _windows(fn, n_windows, calls):
+    """ms per call of ``fn`` in each of ``n_windows`` windows (CUDA events)."""
+    import torch
+
+    out = []
+    for _ in range(n_windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / calls)
+    return out
+
+
+def _median(v):
+    return sorted(v)[len(v) // 2]
+
+
+def phase_main_path(reports, smi_line):
+    """SIFT(480, 640).extract_batch on 8 noise frames through the kernels."""
+    from siftmetal_tpu_torch import SIFT
+
+    sift = SIFT(480, 640)
+    x = _noise_frames(sift.device)
+    _, descs, ctr, _, _ = _drive("main", sift, x, PARITY_KERNELS, reports)
     # Frame 0 alone gives frame 0's batched result.
-    k1, d1, c1 = sift.extract(x[0])
+    _, d1, c1 = sift.extract(x[0])
     _require(all(int(c1[k]) == ctr[k][0] for k in c1), "batched != single-frame counters")
     fd = (d1.features[d1.valid].int() - descs.features[0][descs.valid[0]].int()).abs()
     _require(int(fd.max()) <= 1, "batched != single-frame descriptors")
     # Three windows of 5 calls each: the host runs most of the main path,
     # and host time on a shared machine spreads more than device time.
-    windows = []
-    for _ in range(3):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(5):
-            sift.extract_batch(x)
-        end.record()
-        torch.cuda.synchronize()
-        windows.append(start.elapsed_time(end) / 5)
-    ms = sorted(windows)[1]
-    _profile(sift, x)
-    print(f"[main] launches {json.dumps(launches)}", flush=True)
-    print(f"[main] counters (sum over 8 frames): "
-          f"{json.dumps({k: sum(v) for k, v in ctr.items()})}", flush=True)
+    windows = _windows(lambda: sift.extract_batch(x), 3, 5)
+    ms = _median(windows)
+    _profile("main", lambda: sift.extract_batch(x))
     print(f"[main] descriptors per frame {ctr['n_descriptors']}", flush=True)
     print(f"[main] extract_batch 8x480x640: median {ms:.3f} ms/batch, {8e3 / ms:.2f} frames/s "
           f"(windows of 5 calls: {', '.join(f'{w:.3f}' for w in windows)} ms; {smi_line})",
           flush=True)
-    return ms
+    return ctr
 
 
-def _profile(sift, x):
-    """One main-path call under torch.profiler: the union of device kernel
+def phase_fast_path(reports, parity_ctr, smi_line):
+    """The fast-preset slice at full width: bf16 extraction of the 8 noise
+    frames, pairwise matching, a map beyond ``target_block``, and the
+    parity configuration under each variant switch."""
+    import numpy as np
+    import torch
+
+    from siftmetal_tpu_torch import FAST_BF16_CONFIG, FAST_CONFIG, SIFT, SiftConfig
+    from siftmetal_tpu_torch.match import geometry_score, match_bruteforce
+
+    sift = SIFT(480, 640, config=FAST_BF16_CONFIG)
+    x = _noise_frames(sift.device)
+    pairs = [(0, 1), (2, 3), (4, 5), (6, 7)]
+
+    def match_pairs(descs):
+        out = []
+        for i, j in pairs:
+            mt = match_bruteforce(descs.features[i], descs.features[j],
+                                  descs.valid[i], descs.valid[j])
+            xy = lambda k: torch.stack([descs.x[k], descs.y[k]], -1)
+            out.append((mt, geometry_score(mt, xy(i), xy(j))))
+        return out
+
+    required = ("seed_octave_bf16", "octave_oneshot_bf16", "blur_stack_bf16",
+                "detect_candidates", "orientation_hist", "descriptor_hist")
+    # Without the 2x oversampling a noise frame now and then has a row with
+    # more soft extrema than the row has slots: counted in `overflow`.
+    _, descs, ctr, _, matched = _drive("fast", sift, x, required, reports, match_pairs,
+                                       may_overflow=True)
+    nq = sift.config.max_descriptors
+    for (i, j), (mt, score) in zip(pairs, matched):
+        _require(mt.target_idx.shape == (nq,) and mt.target_idx.dtype == torch.int32,
+                 f"fast: matches {tuple(mt.target_idx.shape)} {mt.target_idx.dtype}")
+        v = descs.valid[i]
+        _require(bool(torch.isfinite(mt.distance[v]).all()), "fast: non-finite match distances")
+        _require(bool(((mt.best_idx[v] >= 0) & (mt.best_idx[v] < ctr["n_descriptors"][j])).all()),
+                 "fast: a best match points at a padded target")
+        _require(bool(torch.isfinite(score)) and 0.0 <= float(score) <= 1.0,
+                 f"fast: geometry score {float(score)}")
+    print(f"[fast] descriptors per frame {ctr['n_descriptors']}; matches per pair "
+          f"{[int(mt.count) for mt, _ in matched]} (independent noise frames: none expected), "
+          f"geometry scores {[round(float(sc), 4) for _, sc in matched]}", flush=True)
+
+    # Times, in turns inside this one run: fast bf16, fast fp32, parity.
+    sift32 = SIFT(480, 640, config=FAST_CONFIG)
+    parity = SIFT(480, 640)
+    sift32.extract_batch(x)
+    torch.cuda.synchronize()
+    runs = {"fast_bf16": lambda: sift.extract_batch(x), "fast_fp32": lambda: sift32.extract_batch(x),
+            "parity": lambda: parity.extract_batch(x)}
+    times = {k: [] for k in runs}
+    for _ in range(3):
+        for k, fn in runs.items():
+            times[k] += _windows(fn, 1, 5)
+    for k, v in times.items():
+        print(f"[fast] extract_batch 8x480x640 {k}: median {_median(v):.3f} ms/batch, "
+              f"{8e3 / _median(v):.2f} frames/s (windows of 5 calls, in turns: "
+              f"{', '.join(f'{t:.3f}' for t in v)} ms; {smi_line})", flush=True)
+    mw = _windows(lambda: match_pairs(descs), 3, 3)
+    print(f"[fast] match_bruteforce + geometry_score, 4 pairs of {nq} x {nq} x 128 uint8: median "
+          f"{_median(mw):.3f} ms ({_median(mw) / 4:.3f} ms a pair; windows {', '.join(f'{t:.3f}' for t in mw)} ms)",
+          flush=True)
+    _profile("fast extract", lambda: sift.extract_batch(x))
+    _profile("fast match", lambda: match_pairs(descs))
+
+    # --- a map beyond target_block: 4096 queries x 131072 targets ----------
+    rng = np.random.default_rng(1)
+    tq, tt, blk = 4096, 131072, 65536
+    targets = torch.from_numpy(rng.integers(0, 256, (tt, 128), dtype=np.uint8)).to(sift.device)
+    src = torch.from_numpy(rng.permutation(tt)[:tq]).to(sift.device)
+    noise = torch.from_numpy(rng.integers(-3, 4, (tq, 128)).astype(np.int16)).to(sift.device)
+    queries = (targets[src].to(torch.int16) + noise).clamp(0, 255).to(torch.uint8)
+    qv = torch.ones((tq,), dtype=torch.bool, device=sift.device)
+    tv = torch.from_numpy(rng.uniform(size=tt) > 0.02).to(sift.device)
+    big = match_bruteforce(queries, targets, qv, tv, target_block=blk)
+    want = torch.where(tv[src], src, -1).to(torch.int32)
+    hit = want >= 0
+    _require(bool((big.target_idx[hit] == want[hit]).all()),
+             "blocked matcher: a query did not find the target it was made from")
+    single = match_bruteforce(queries, targets[:blk], qv, tv[:blk], target_block=blk)
+    blocked = match_bruteforce(queries, targets[:blk], qv, tv[:blk], target_block=blk // 4)
+    for name, a, c in zip(single._fields, single, blocked):
+        _require(torch.equal(a, c), f"blocked matcher: {name} differs from the single-shot route")
+    first_half = big.best_idx < blk
+    _require(bool((big.best_idx[first_half] == single.best_idx[first_half]).all())
+             and bool((big.distance <= single.distance).all()),
+             "blocked matcher: the two-block result disagrees with its first block")
+    torch.cuda.reset_peak_memory_stats()
+    ms_big = _time_ms(lambda: match_bruteforce(queries, targets, qv, tv, target_block=blk), 3)
+    ms_one = _time_ms(lambda: match_bruteforce(queries, targets[:blk], qv, tv[:blk], target_block=blk), 3)
+    print(f"[fast] match_bruteforce {tq} x {tt} x 128 uint8 in blocks of {blk}: {ms_big:.3f} ms, "
+          f"{int(big.count)} accepted of {int(hit.sum())} whose target is valid; single-shot on the "
+          f"first {blk}: {ms_one:.3f} ms, equal to the blocked route (blocks of {blk // 4}) field by "
+          f"field; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del targets, queries, big, single, blocked
+
+    # --- the parity configuration under each variant switch ----------------
+    variants = {
+        "cascade": (SiftConfig(use_oneshot_pyramid=False, use_pallas_pyramid=True),
+                    ("octave_cascade", "blur_stack")),
+        "lean": (SiftConfig(detect_slot_fields=False), ("detect_candidates_lean",)),
+        "fused": (SiftConfig(use_fused_describe=True), ("orient_desc",)),
+    }
+    for tag, (cfg, need) in variants.items():
+        sv = SIFT(480, 640, config=cfg)
+        _, _, vctr, vl, _ = _drive(tag, sv, x, need, reports)
+        unused = {"cascade": ("seed_octave", "octave_oneshot"), "lean": ("detect_candidates",),
+                  "fused": ("orientation_hist", "descriptor_hist")}[tag]
+        _require(all(vl[k] == 0 for k in unused), f"{tag}: still launched {unused}: {vl}")
+        stages = ("n_extrema", "n_soft", "n_interp", "n_hard", "n_edge", "n_border")
+        if tag == "cascade":
+            # Another order of the same blurs: counts within 1% of the
+            # one-shot route's.
+            for k in stages:
+                a, c = sum(vctr[k]), sum(parity_ctr[k])
+                _require(abs(a - c) <= max(10, 0.01 * c), f"cascade: {k} {a} vs {c}")
+        else:
+            _require(all(vctr[k] == parity_ctr[k] for k in stages + ("n_movers",)),
+                     f"{tag}: detection counters differ from the default route")
+            if tag == "lean":
+                _require(vctr["n_descriptors"] == parity_ctr["n_descriptors"],
+                         "lean: descriptor counts differ from the default route")
+            else:
+                diff = sum(abs(a - c) for a, c in zip(vctr["n_descriptors"], parity_ctr["n_descriptors"]))
+                _require(diff <= 0.002 * sum(parity_ctr["n_descriptors"]),
+                         f"fused: descriptor counts differ from the staged route by {diff}")
+        t = []
+        for _ in range(2):
+            t += _windows(lambda: sv.extract_batch(x), 1, 5)
+            t += _windows(lambda: parity.extract_batch(x), 1, 5)
+        print(f"[{tag}] extract_batch 8x480x640 in turns with the default route (ms/batch): "
+              f"{tag} {t[0]:.3f}, default {t[1]:.3f}, {tag} {t[2]:.3f}, default {t[3]:.3f}; "
+              f"descriptors {sum(vctr['n_descriptors'])} vs {sum(parity_ctr['n_descriptors'])} ({smi_line})",
+              flush=True)
+
+
+def _profile(tag, fn):
+    """One call of ``fn`` under torch.profiler: the union of device kernel
     time against the host's wall time (the idle share), each stage's host
     and device span, and the kernels with the most device time."""
     import torch
@@ -407,7 +782,7 @@ def _profile(sift, x):
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        sift.extract_batch(x)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
     events = list(prof.events())
@@ -430,10 +805,10 @@ def _profile(sift, x):
         n, c = per.get(e.name, (0.0, 0))
         per[e.name] = (n + e.time_range.elapsed_us() / 1e3, c + 1)
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:8]
-    print(f"[profile] one extract_batch under the profiler: wall {wall:.3f} ms, device busy "
+    print(f"[profile {tag}] one call under the profiler: wall {wall:.3f} ms, device busy "
           f"{busy:.3f} ms in {len(kern)} device ops (idle {100.0 * (1.0 - busy / wall):.1f}%); "
           f"stage spans (ms) {json.dumps(spans)}", flush=True)
-    print("[profile] most device time: " + "; ".join(
+    print(f"[profile {tag}] most device time: " + "; ".join(
         f"{name[:44]} {ms:.3f} ms x{c}" for name, (ms, c) in top), flush=True)
 
 
@@ -489,6 +864,54 @@ def phase_ipol(smi_line):
           f"n_movers {ctr['n_movers']} ({smi_line})", flush=True)
 
 
+def phase_fast_gates(smi_line):
+    """Fast-preset gates on the card: the butterfly under FAST_BF16_CONFIG
+    keeps at least 90% keypoint agreement with FAST_CONFIG (the bar of
+    tests/test_repeatability.py::test_bf16_pyramid_agreement), and
+    matching the butterfly against itself is the identity."""
+    import torch
+
+    from siftmetal_tpu_torch import FAST_BF16_CONFIG, FAST_CONFIG, SIFT
+    from siftmetal_tpu_torch.match import geometry_score, match_bruteforce
+    from siftmetal_tpu_torch.utils.io import load_image
+    from siftmetal_tpu_torch.utils.repeatability import keypoint_agreement, keypoint_array
+
+    img = load_image(str(ROOT / "tests" / "fixtures" / "butterfly.ppm"))
+    h, w = img.shape[:2]
+    k32, _, c32 = SIFT(h, w, config=FAST_CONFIG).extract(img)
+    k16, d16, c16 = SIFT(h, w, config=FAST_BF16_CONFIG).extract(img)
+    # The fast preset packs this detail-dense image into a quarter of the
+    # parity path's pixels, so a few rows hold more soft extrema than a
+    # row has slots: counted and shown, not a failure of the gate.
+    over = {name: {key: int(c[key]) for key in OVERFLOWS} for name, c in (("fp32", c32), ("bf16", c16))}
+    p32, s32 = keypoint_array(k32)
+    p16, _ = keypoint_array(k16)
+    agree = keypoint_agreement(p32, s32, p16, (h, w))
+    ratio = len(p16) / max(len(p32), 1)
+    _require(agree >= 0.90, f"bf16 pyramid agreement {agree:.4f} < 0.90")
+    _require(0.8 <= ratio <= 1.25, f"bf16 keypoint population {len(p16)} vs fp32 {len(p32)}")
+    mt = match_bruteforce(d16.features, d16.features, d16.valid, d16.valid)
+    v = d16.valid
+    nv = int(v.sum())
+    own = torch.arange(v.shape[0], device=v.device, dtype=torch.int32)
+    _require(bool((mt.distance[v] == 0).all()), "self-match: a descriptor is not at distance 0 from itself")
+    # Ties go to the lowest index, so a duplicated descriptor may report its
+    # first copy: identical features, not necessarily the same index.
+    _require(torch.equal(d16.features[mt.best_idx[v].long()], d16.features[v]),
+             "self-match: best match is not the descriptor itself")
+    same_idx = int((mt.best_idx[v] == own[v]).sum())
+    _require(same_idx >= 0.99 * nv, f"self-match: {same_idx} of {nv} indices are the identity")
+    xy = torch.stack([d16.x, d16.y], -1)
+    score = float(geometry_score(mt, xy, xy))
+    _require(int(mt.count) >= 0.95 * nv and score > 0.99,
+             f"self-match: {int(mt.count)} of {nv} accepted, geometry score {score:.4f}")
+    print(f"[gates] butterfly {h}x{w}: FAST_BF16 vs FAST keypoint agreement {agree:.4f} "
+          f"({len(p16)} vs {len(p32)} keypoints); self-match {same_idx} of {nv} indices the identity, "
+          f"{int(mt.count)} accepted under the ratio test, geometry score {score:.4f}; overflow "
+          f"counters {json.dumps(over)} ({smi_line})",
+          flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -521,8 +944,10 @@ def main() -> int:
           flush=True)
 
     reports = phase_kernels(_peaks(torch.cuda.get_device_name(0)))
-    phase_main_path(reports, smi_line)
+    parity_ctr = phase_main_path(reports, smi_line)
+    phase_fast_path(reports, parity_ctr, smi_line)
     phase_ipol(smi_line)
+    phase_fast_gates(smi_line)
     print(f"[done] {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": [r.row for r in reports.values()]}))
     print(smi_line)

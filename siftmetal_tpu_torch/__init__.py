@@ -1,15 +1,19 @@
 """siftmetal_tpu_torch: the PyTorch/CUDA port of siftmetal_tpu.
 
-Batched SIFT extraction (pyramid, detection, orientation, descriptors) on
-an NVIDIA H100, with hand-written CUDA kernels for the stages the JAX
-package ran as Pallas TPU kernels. The JAX package ``siftmetal_tpu`` is
+Batched SIFT extraction (pyramid, detection, orientation, descriptors) and
+descriptor matching on an NVIDIA H100, with hand-written CUDA kernels for
+the stages the JAX package ran as Pallas TPU kernels. The JAX package ``siftmetal_tpu`` is
 the reference it is held against; this package imports none of it.
 
     from siftmetal_tpu_torch import SIFT
     kps, descs, counters = SIFT(480, 640).extract(frame)      # on CUDA
     kps, descs, counters = SIFT(480, 640, device="cpu").extract(frame)
+
+    from siftmetal_tpu_torch.match import match_bruteforce, geometry_score
+    m = match_bruteforce(d0.features, d1.features, d0.valid, d1.valid)
 """
 
+from . import match
 from .config import (
     DEFAULT_CONFIG,
     FAST_BF16_CONFIG,
@@ -33,4 +37,5 @@ __all__ = [
     "extract",
     "extract_gray",
     "extract_gray_batch",
+    "match",
 ]

@@ -7,10 +7,15 @@ written for one package carries over to the other through
 implementation ("Anatomy of the SIFT Method", Rey-Otero & Delbracio 2014),
 the origin of the golden test fixtures.
 
-Several fields select TPU kernel variants of the JAX package
-(``use_pallas_*``, ``use_mxu_pyramid``, ``mxu_blur_precision``, ...). They
-are kept so that configurations round-trip unchanged; the port reads only
-the algorithmic constants, the budgets and ``pyramid_dtype``.
+Routing follows the configuration, not the device: a switch below picks
+the same structure on the CPU (through the kernels' plain versions) and on
+the card (through the CUDA kernels). How each variant measured on the H100
+is in ``PERF.md``. The fields that only chose between TPU lowerings of one
+function (``use_pallas_describe``, ``use_patch_mxu_reduce``,
+``use_multikp_pack``, ``use_pallas_detect``, ``use_mxu_pyramid``,
+``mxu_blur_precision``, ``use_conv_blur``) are kept so that configurations
+round-trip unchanged; the port has one lowering of each and reads none of
+them.
 """
 
 from __future__ import annotations
@@ -57,22 +62,35 @@ class SiftConfig:
     # [chunk, patch^2, ...] temporaries.
     describe_lane_chunk: int = 128
 
-    # --- TPU kernel selection of the JAX package (unused by the port) ---
+    # --- kernel variants (live in the port) ---
+    # Band-resident patch kernels: not ported yet; True raises.
+    use_band_patches: bool = False
+    # One fused orientation+descriptor kernel per keypoint (peaks kept in
+    # bin order, no lane compaction) instead of the two staged kernels.
+    use_fused_describe: bool = False
+    # False: the lean detection kernel (candidate columns, slot flags and
+    # counters only); the tail compacts to the candidate budget and derives
+    # the iteration-1 Taylor step from one 19-point gather.
+    detect_slot_fields: bool = True
+    # Octaves of at least 256 rows that the one-shot route did not take go
+    # through the fused incremental cascade kernel (fp32 pyramid only).
+    use_pallas_pyramid: bool = False
+    # Fused seed for octave 0 and one-shot slices for octaves of at least
+    # 176 rows; False leaves every octave to the incremental cascade.
+    use_oneshot_pyramid: bool = True
+
+    # --- TPU lowering choices of the JAX package (round-trip only) ---
     use_pallas_describe: bool = True
     use_patch_mxu_reduce: bool = True
     use_multikp_pack: bool = True
-    use_band_patches: bool = False
-    use_fused_describe: bool = False
     use_pallas_detect: bool = True
-    detect_slot_fields: bool = True
     use_mxu_pyramid: bool = True
     mxu_blur_precision: str = "high"
     use_conv_blur: bool = False
-    use_pallas_pyramid: bool = False
-    use_oneshot_pyramid: bool = True
 
     # Precision of the Gaussian blur chain: "float32" (the IPOL-parity
-    # default) or "bfloat16" (fast mode; not ported yet).
+    # default) or "bfloat16" (fast mode: every blur reads a bf16 chain and
+    # emits its fp32 accumulator).
     pyramid_dtype: str = "float32"
 
     @property
@@ -189,5 +207,5 @@ DEFAULT_CONFIG = SiftConfig()
 # Lowe-style fast preset: no 2x oversampling (delta_min = 1).
 FAST_CONFIG = SiftConfig(delta_min=1.0)
 
-# FAST with a bf16 blur chain (the port runs fp32 only so far; see ROADMAP).
+# FAST with a bf16 blur chain (see PERF.md for its time on the H100).
 FAST_BF16_CONFIG = SiftConfig(delta_min=1.0, pyramid_dtype="bfloat16")

@@ -16,6 +16,12 @@
 // append); only the per-frame counters use integer atomicAdd. Column
 // and edge flag are separate outputs (the TPU packed them in one word).
 //
+// The lean form (detect_candidates_pallas with emit_fields=False) is the
+// same kernel without the Taylor/edge harvest: only the candidate
+// columns, the slot flags and the counters leave it, and the caller
+// derives the Taylor step at the candidates it keeps. Both forms are one
+// template, so the outputs they share are equal bit for bit.
+//
 // Bound on an H100: bytes (the DoG stack is read once: 197 MB at octave 0
 // of a 640x480 batch of 8); the 26 neighbour reads of a sample hit L1/L2.
 // The Taylor step runs only at soft extrema. Built with -fmad=false so
@@ -27,6 +33,7 @@
 
 namespace {
 
+template <bool kFields>
 __global__ void detect_kernel(const float* __restrict__ dog, int B, int S,
                               int H, int W, float soft_thr, float edge_bound,
                               int slots, int* __restrict__ cand_col,
@@ -86,7 +93,11 @@ __global__ void detect_kernel(const float* __restrict__ dog, int B, int S,
     raw_cnt += __popc(mraw);
     if (soft) {
       const int rank = count + __popc(msoft & below);
-      if (rank < slots) {
+      if (rank < slots && !kFields) {
+        cand_col[out0 + rank] = c;
+        slot_ok[out0 + rank] = 1;
+      }
+      if (rank < slots && kFields) {
 #define NB(ds, di, dj) q[(ds) * plane + (di) * W + (dj)]
         const float cc0 = v;
         const float gi = 0.5f * (NB(0, 1, 0) - NB(0, -1, 0));
@@ -134,11 +145,13 @@ __global__ void detect_kernel(const float* __restrict__ dog, int B, int S,
     const long long o = out0 + lane;
     cand_col[o] = 0;
     slot_ok[o] = 0;
-    c_oi[o] = 0.f;
-    c_oj[o] = 0.f;
-    c_os[o] = 0.f;
-    c_val[o] = 0.f;
-    c_edge[o] = 0;
+    if (kFields) {
+      c_oi[o] = 0.f;
+      c_oj[o] = 0.f;
+      c_os[o] = 0.f;
+      c_val[o] = 0.f;
+      c_edge[o] = 0;
+    }
   }
   if (lane == 0) {
     atomicAdd(n_raw + b, raw_cnt);
@@ -160,8 +173,23 @@ extern "C" int detect_candidates(const float* dog, int B, int S, int H,
   const int threads = 256;
   const long long blocks = (warps * 32 + threads - 1) / threads;
   if (blocks > 0)
-    detect_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
+    detect_kernel<true><<<(unsigned)blocks, threads, 0, stream>>>(
         dog, B, S, H, W, soft_thr, edge_bound, slots, cand_col, slot_ok,
         c_oi, c_oj, c_os, c_val, c_edge, n_raw, n_soft, n_drop);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int detect_candidates_lean(const float* dog, int B, int S, int H,
+                                      int W, float soft_thr, int slots,
+                                      int* cand_col, uint8_t* slot_ok,
+                                      int* n_raw, int* n_soft, int* n_drop,
+                                      cudaStream_t stream) {
+  const long long warps = (long long)B * (S - 2) * (H - 2);
+  const int threads = 256;
+  const long long blocks = (warps * 32 + threads - 1) / threads;
+  if (blocks > 0)
+    detect_kernel<false><<<(unsigned)blocks, threads, 0, stream>>>(
+        dog, B, S, H, W, soft_thr, 0.f, slots, cand_col, slot_ok, nullptr,
+        nullptr, nullptr, nullptr, nullptr, n_raw, n_soft, n_drop);
   return (int)cudaGetLastError();
 }

@@ -38,16 +38,26 @@ EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"detect": ("-fmad=false",)}
 # C signatures: library -> {function: argtypes}; every function returns int.
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "pyramid": {
-        # in, B, H, W_in, start, taps, ks, S, K, W_out, out, stream
-        "band_x": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
-        # xs, B, S, H_in, W, start, taps, ks, K, H_out, first, gauss, dog,
-        # stream
-        "band_y": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+        # in, in_bf16, B, H, W_in, start, taps, ks, S, K, W_out, out,
+        # out_bf16, stream
+        "band_x": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _I, _P],
+        # xs, xs_bf16, B, S, H_in, W, start, taps, ks, K, H_out, first,
+        # first_bf16, gauss, dog, stream
+        "band_y": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P,
+                   _P, _P],
     },
     "detect": {
         # dog, B, S, H, W, soft_thr, edge_bound, slots, cand_col, slot_ok,
         # c_oi, c_oj, c_os, c_val, c_edge, n_raw, n_soft, n_drop, stream
         "detect_candidates": [_P, _I, _I, _I, _I, _F, _F, _I] + [_P] * 11,
+        # dog, B, S, H, W, soft_thr, slots, cand_col, slot_ok, n_raw,
+        # n_soft, n_drop, stream
+        "detect_candidates_lean": [_P, _I, _I, _I, _I, _F, _I] + [_P] * 6,
+    },
+    "cascade": {
+        # g0, B, H, W, taps, radii, n_stage, k_max, total_radius, tile,
+        # gauss, dog, stream
+        "octave_cascade": [_P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     },
     "patches": {
         # gi, gj, B, S, H, W, L, valid, frame, scale, x, y, sigma, radius,
@@ -58,6 +68,12 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # radius, n_hist, n_ori, lam, out, stream
         "descriptor_hist": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                             _P, _P, _P, _I, _I, _I, _F, _P, _P],
+        # gi, gj, B, S, H, W, L, valid, frame, scale, x, y, sigma,
+        # ori_radius, n_bins, lam_ori, smooth_iters, peak_thr, max_ori,
+        # desc_radius, n_hist, n_ori, lam_desc, raw, theta, ori_valid, stream
+        "orient_desc": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _F, _I, _F, _I, _I, _I, _I, _F, _P, _P, _P,
+                        _P],
     },
 }
 

@@ -3,7 +3,8 @@
 Each wrapper runs its kernel's plain PyTorch version for a tensor on the
 CPU, launches its CUDA kernel for a tensor on a CUDA device (no fallback),
 and raises for any other device. ``LAUNCHES[name]`` counts the CUDA
-launches of wrapper ``name``; it moves nowhere else, so a run can show
+launches of wrapper ``name`` (the band wrappers count their bf16-input
+form under ``name_bf16``); it moves nowhere else, so a run can show
 that its main path went through the kernels.
 """
 
@@ -20,6 +21,12 @@ LAUNCHES: Dict[str, int] = {
     "detect_candidates": 0,
     "orientation_hist": 0,
     "descriptor_hist": 0,
+    "seed_octave_bf16": 0,
+    "octave_oneshot_bf16": 0,
+    "blur_stack_bf16": 0,
+    "octave_cascade": 0,
+    "detect_candidates_lean": 0,
+    "orient_desc": 0,
 }
 
 

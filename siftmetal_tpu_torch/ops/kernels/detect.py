@@ -9,12 +9,18 @@ extrema per frame. Rows are the true interior (H-2 of them; the TPU
 kernel's tile padding is gone), and the column and edge flag are separate
 tensors (the TPU packed both into one 13-bit word).
 
+``emit_fields=False`` is the lean form (the TPU kernel's
+``emit_fields=False`` branches, ``detect.py`` :64, :222-225, :301-346):
+the same test, ranking and counters, but only ``cand_col``, ``slot_ok``
+and the counters leave the kernel; the tail derives the Taylor step at the
+candidates it keeps. The outputs the two forms share are equal exactly.
+
 Bound on an H100: bytes, one read of the DoG stack. See csrc/detect.cu.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -27,8 +33,9 @@ class Candidates(NamedTuple):
 
     cand_col: torch.Tensor     # int32: column c (center at c + 1)
     slot_ok: torch.Tensor      # bool
-    cand_fields: Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
-    cand_edge: torch.Tensor    # bool: edge test passed at the candidate
+    # (ofst_i, ofst_j, ofst_s, value) at the candidate; None in the lean form
+    cand_fields: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]
+    cand_edge: Optional[torch.Tensor]  # bool: edge test passed; None when lean
     n_raw: torch.Tensor        # [B] int32
     n_soft: torch.Tensor       # [B] int32
     n_row_dropped: torch.Tensor  # [B] int32
@@ -80,7 +87,11 @@ def edge_ok(hii, hjj, hij, edge_threshold: float) -> torch.Tensor:
 
 
 def detect_candidates_plain(
-    dog: torch.Tensor, soft_threshold: float, edge_threshold: float, slots: int = 6
+    dog: torch.Tensor,
+    soft_threshold: float,
+    edge_threshold: float,
+    slots: int = 6,
+    emit_fields: bool = True,
 ) -> Candidates:
     """The kernel's function in PyTorch (dense passes over the interior)."""
     nb = lambda ds, di, dj: _neighborhood(dog, ds, di, dj)
@@ -105,15 +116,19 @@ def detect_candidates_plain(
         dim=-1,
     )
     ok = count[..., None] > torch.arange(slots, device=dog.device)
-    oi, oj, os_, val, hii, hjj, hij = taylor_step(nb, c)
-    eok = edge_ok(hii, hjj, hij, edge_threshold)
-    pick = lambda f: torch.where(ok, torch.gather(f, -1, cand), torch.zeros((), dtype=f.dtype, device=f.device))
+    fields = edge = None
+    if emit_fields:
+        oi, oj, os_, val, hii, hjj, hij = taylor_step(nb, c)
+        eok = edge_ok(hii, hjj, hij, edge_threshold)
+        pick = lambda f: torch.where(ok, torch.gather(f, -1, cand), torch.zeros((), dtype=f.dtype, device=f.device))
+        fields = (pick(oi), pick(oj), pick(os_), pick(val))
+        edge = pick(eok)
     to_i32 = lambda a: a.to(torch.int32)
     return Candidates(
         cand_col=to_i32(torch.where(ok, cand, 0)),
         slot_ok=ok,
-        cand_fields=(pick(oi), pick(oj), pick(os_), pick(val)),
-        cand_edge=pick(eok),
+        cand_fields=fields,
+        cand_edge=edge,
         n_raw=to_i32(raw.sum((1, 2, 3))),
         n_soft=to_i32(soft.sum((1, 2, 3))),
         n_row_dropped=to_i32((count - slots).clamp(min=0).sum((1, 2))),
@@ -121,42 +136,55 @@ def detect_candidates_plain(
 
 
 def detect_candidates(
-    dog: torch.Tensor, soft_threshold: float, edge_threshold: float, slots: int = 6
+    dog: torch.Tensor,
+    soft_threshold: float,
+    edge_threshold: float,
+    slots: int = 6,
+    emit_fields: bool = True,
 ) -> Candidates:
     """[B, S, H, W] fp32 DoG -> :class:`Candidates` (see module doc)."""
-    if not use_kernel(dog, "detect_candidates"):
-        return detect_candidates_plain(dog, soft_threshold, edge_threshold, slots)
-    require(dog, "detect_candidates")
+    name = "detect_candidates" if emit_fields else "detect_candidates_lean"
+    if not use_kernel(dog, name):
+        return detect_candidates_plain(
+            dog, soft_threshold, edge_threshold, slots, emit_fields
+        )
+    require(dog, name)
     if not 1 <= slots <= 32:
-        raise ValueError(f"detect_candidates: slots={slots} outside [1, 32]")
+        raise ValueError(f"{name}: slots={slots} outside [1, 32]")
     if dog.ndim != 4 or min(dog.shape[1:]) < 3:
-        raise ValueError(f"detect_candidates: expected [B, S>=3, H>=3, W>=3], got {tuple(dog.shape)}")
+        raise ValueError(f"{name}: expected [B, S>=3, H>=3, W>=3], got {tuple(dog.shape)}")
     b, s, h, w = dog.shape
     dev = dog.device
     shape = (b, s - 2, h - 2, slots)
     cand = torch.empty(shape, dtype=torch.int32, device=dev)
     ok = torch.empty(shape, dtype=torch.uint8, device=dev)
-    f = [torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(4)]
-    edge = torch.empty(shape, dtype=torch.uint8, device=dev)
     counts = torch.zeros((3, b), dtype=torch.int32, device=dev)
-    r = edge_threshold
+    count_ptrs = [counts[k].data_ptr() for k in range(3)]
     lib = _cuda.library("detect")
-    _cuda.check(
-        lib.detect_candidates(
+    f = edge = None
+    if emit_fields:
+        f = tuple(torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(4))
+        edge = torch.empty(shape, dtype=torch.uint8, device=dev)
+        r = edge_threshold
+        code = lib.detect_candidates(
             dog.data_ptr(), b, s, h, w, float(soft_threshold),
             float((r + 1.0) ** 2 / r), slots, cand.data_ptr(), ok.data_ptr(),
-            *(a.data_ptr() for a in f), edge.data_ptr(),
-            counts[0].data_ptr(), counts[1].data_ptr(), counts[2].data_ptr(),
+            *(a.data_ptr() for a in f), edge.data_ptr(), *count_ptrs,
             _cuda.stream_of(dog),
-        ),
-        "detect_candidates",
-    )
-    LAUNCHES["detect_candidates"] += 1
+        )
+        edge = edge.bool()
+    else:
+        code = lib.detect_candidates_lean(
+            dog.data_ptr(), b, s, h, w, float(soft_threshold), slots,
+            cand.data_ptr(), ok.data_ptr(), *count_ptrs, _cuda.stream_of(dog),
+        )
+    _cuda.check(code, name)
+    LAUNCHES[name] += 1
     return Candidates(
         cand_col=cand,
         slot_ok=ok.bool(),
-        cand_fields=tuple(f),
-        cand_edge=edge.bool(),
+        cand_fields=f,
+        cand_edge=edge,
         n_raw=counts[0],
         n_soft=counts[1],
         n_row_dropped=counts[2],

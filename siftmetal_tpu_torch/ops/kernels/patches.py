@@ -7,6 +7,13 @@ is one keypoint (orientation) or one (keypoint, orientation) pair
 (descriptor); lanes of every frame of a batch go through one launch, each
 with its ``frame`` index and ``valid`` flag (invalid lanes return zeros).
 
+``orient_desc_lanes`` is the fused form (``_orient_desc_kernel`` through
+``orient_desc_lanes_pallas`` :1835): per keypoint, histogram -> circular
+smoothings -> peaks in BIN order, the first ``max_ori`` kept -> one raw
+descriptor per kept peak, in one launch. The staged path keeps the
+``max_ori`` HIGHEST peaks instead; the two differ in order always and in
+the set only when a keypoint has more than ``max_ori`` peaks.
+
 What the TPU kernels needed and these do not: 8/128-aligned window DMAs
 into padded fields, radius buckets, multi-keypoint lane packing, the
 polynomial atan2 and the MXU entry reduction. The gradient fields here are
@@ -18,12 +25,18 @@ see csrc/patches.cu.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ...config import SiftConfig
-from ...sift.describe import descriptor_plain, gradients, orientation_hist_plain
+from ...sift.describe import (
+    _smooth_circular,
+    descriptor_plain,
+    gradients,
+    orientation_hist_plain,
+    orientation_peaks_bin_order,
+)
 from .. import cuda as _cuda
 from . import LAUNCHES, require, use_kernel
 
@@ -141,3 +154,72 @@ def descriptor_lanes(
     )
     LAUNCHES["descriptor_hist"] += 1
     return out
+
+
+def orient_desc_lanes_plain(
+    fields: PatchFields, scale, x_oct, y_oct, sigma_oct, config: SiftConfig,
+    valid, frame,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused kernel's function in PyTorch: plain histograms, smoothing,
+    the bin-order peak pick, plain descriptors of the kept peaks."""
+    m = config.max_orientations_per_keypoint
+    fr, sc = frame.long(), scale.long()
+    hist = orientation_hist_plain(
+        fields.gi, fields.gj, fr, sc, x_oct, y_oct, sigma_oct, valid, config
+    )
+    hist = _smooth_circular(hist, config.orientation_smoothing_iterations)
+    theta, ov = orientation_peaks_bin_order(hist, config)
+    ov = ov & valid[:, None]
+    rep = lambda a: a.repeat_interleave(m)
+    raw = descriptor_plain(
+        fields.gi, fields.gj, rep(fr), rep(sc), rep(x_oct), rep(y_oct),
+        rep(sigma_oct), theta.reshape(-1), ov.reshape(-1), config,
+    )
+    return raw.reshape(scale.shape[0], m, -1), theta, ov
+
+
+def orient_desc_lanes(
+    fields: PatchFields,
+    scale: torch.Tensor,
+    x_oct: torch.Tensor,
+    y_oct: torch.Tensor,
+    sigma_oct: torch.Tensor,
+    config: SiftConfig,
+    valid: Optional[torch.Tensor] = None,
+    frame: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused orientation + descriptor stage of [L] keypoints. Returns (raw
+    [L, max_ori, n_hist^2 * n_ori] un-normalized descriptors, theta
+    [L, max_ori] in [-pi, pi), ori_valid [L, max_ori] bool); invalid lanes
+    and missing peaks are zeros."""
+    valid, frame = _lanes(scale, valid, frame)
+    if not use_kernel(fields.gi, "orient_desc"):
+        return orient_desc_lanes_plain(
+            fields, scale, x_oct, y_oct, sigma_oct, config, valid, frame
+        )
+    args = _kernel_args(fields, "orient_desc", valid, frame, scale,
+                        x_oct, y_oct, sigma_oct)
+    b, s, h, w = fields.gi.shape
+    l = scale.shape[0]
+    m = config.max_orientations_per_keypoint
+    dev = fields.gi.device
+    raw = torch.empty((l, m, config.descriptor_length), dtype=torch.float32, device=dev)
+    theta = torch.empty((l, m), dtype=torch.float32, device=dev)
+    ov = torch.empty((l, m), dtype=torch.uint8, device=dev)
+    lib = _cuda.library("patches")
+    _cuda.check(
+        lib.orient_desc(
+            fields.gi.data_ptr(), fields.gj.data_ptr(), b, s, h, w, l,
+            *(a.data_ptr() for a in args), config.ori_patch_radius,
+            config.n_orientation_bins, float(config.orientation_lambda),
+            config.orientation_smoothing_iterations,
+            float(config.orientation_peak_threshold), m,
+            config.desc_patch_radius, config.n_histograms_per_axis,
+            config.n_descriptor_bins, float(config.descriptor_lambda),
+            raw.data_ptr(), theta.data_ptr(), ov.data_ptr(),
+            _cuda.stream_of(raw),
+        ),
+        "orient_desc",
+    )
+    LAUNCHES["orient_desc"] += 1
+    return raw, theta, ov.bool()

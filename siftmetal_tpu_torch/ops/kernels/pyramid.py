@@ -17,6 +17,12 @@ applied in direct fp32. The routing gates (``supports``,
 ``seed_supports``) keep the JAX package's geometry so both packages take
 the same route for the same input.
 
+bf16 forms (the fast preset's ``pyramid_dtype="bfloat16"``; the TPU kernel
+on a bf16 input, ``_split_val`` :150 with ``x_lo is None``): the input is
+read as bf16, exactly; both passes accumulate in fp32 with fp32 taps and
+nothing is rounded between them; every slice and DoG comes out fp32. In
+the octave form slice 0 and ``dog[0]`` use the bf16 input upcast.
+
 Bound on an H100: bytes (the outputs alone are 11 full planes per frame
 at octave 0). See csrc/pyramid.cu for the kernel's design.
 """
@@ -85,8 +91,16 @@ def _on_device(key, tab: BandTables, device) -> Tuple[torch.Tensor, ...]:
 # --- plain versions of the two passes --------------------------------------
 
 
-def band_x_plain(x: torch.Tensor, tab: BandTables) -> torch.Tensor:
-    """[B, H, W_in] -> [B, S, H, W_out]: the kernel's X pass in PyTorch."""
+def band_x_plain(
+    x: torch.Tensor, tab: BandTables, out_dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """[B, H, W_in] -> [B, S, H, W_out]: the kernel's X pass in PyTorch.
+
+    The input (fp32 or bf16) is upcast exactly; each output is the fp32
+    sum of its taps in table order, tap 0 first, every product and every
+    sum rounded to fp32 on its own, then cast once to ``out_dtype``
+    (round-to-nearest-even for bf16)."""
+    x = x.float()
     start = torch.from_numpy(tab.start).to(x.device).long()
     taps = torch.from_numpy(tab.taps).to(x.device)
     outs = []
@@ -97,7 +111,7 @@ def band_x_plain(x: torch.Tensor, tab: BandTables) -> torch.Tensor:
         for k in range(int(tab.ks[s])):
             acc = acc + taps[s, k] * x.index_select(-1, start[s] + k)
         outs.append(acc)
-    return torch.stack(outs, dim=1)
+    return torch.stack(outs, dim=1).to(out_dtype)
 
 
 def band_y_plain(
@@ -106,7 +120,10 @@ def band_y_plain(
     first: Optional[torch.Tensor],
     with_dog: bool,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """[B, S, H_in, W] -> (gauss, dog): the kernel's Y pass in PyTorch."""
+    """[B, S, H_in, W] -> (gauss, dog): the kernel's Y pass in PyTorch
+    (fp32 or bf16 ``xs`` and ``first``, upcast exactly; fp32 out)."""
+    xs = xs.float()
+    first = None if first is None else first.float()
     start = torch.from_numpy(tab.start).to(xs.device).long()
     taps = torch.from_numpy(tab.taps).to(xs.device)
     ys = [] if first is None else [first]
@@ -133,17 +150,29 @@ def separable_bands(
     first: Optional[torch.Tensor],
     with_dog: bool,
     counter: str,
+    mid_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """X pass then Y pass of every slice over a [B, H_in, W_in] input.
 
-    Returns (gauss [B, S (+1 with ``first``), H_out, W_out], dog or None).
-    On a CUDA tensor both passes are kernel launches (counted once under
-    ``counter``); on the CPU the plain versions run."""
+    ``x`` (and ``first``) are fp32 or bf16; ``mid_dtype`` is the type of
+    the X pass's result that the Y pass reads (bf16 only for a bf16 ``x``
+    without ``first``: the cascade blur of the bf16 chain). Returns fp32
+    (gauss [B, S (+1 with ``first``), H_out, W_out], dog or None). On a
+    CUDA tensor both passes are kernel launches (counted once under
+    ``counter``, or ``counter_bf16`` for a bf16 ``x``); on the CPU the plain
+    versions run."""
+    bf16 = torch.bfloat16
+    if x.dtype not in (torch.float32, bf16):
+        raise TypeError(f"{counter}: expected float32 or bfloat16, got {x.dtype}")
+    if mid_dtype not in (torch.float32, bf16) or (
+        mid_dtype == bf16 and (x.dtype != bf16 or first is not None)
+    ):
+        raise ValueError(f"{counter}: no {x.dtype} -> {mid_dtype} form of the band passes")
     if not use_kernel(x, counter):
-        return band_y_plain(band_x_plain(x, tab_x), tab_y, first, with_dog)
-    require(x, counter)
+        return band_y_plain(band_x_plain(x, tab_x, mid_dtype), tab_y, first, with_dog)
+    require(x, counter, x.dtype)
     if first is not None:
-        require(first, counter)
+        require(first, counter, x.dtype)
     if x.ndim != 3:
         raise ValueError(f"{counter}: expected [B, H, W], got {tuple(x.shape)}")
     b, h_in, w_in = x.shape
@@ -158,10 +187,11 @@ def separable_bands(
     sy, ty, ky = _on_device((key, "y"), tab_y, x.device)
     lib = _cuda.library("pyramid")
     stream = _cuda.stream_of(x)
-    xs = torch.empty((b, s, h_in, w_out), dtype=torch.float32, device=x.device)
+    xs = torch.empty((b, s, h_in, w_out), dtype=mid_dtype, device=x.device)
     _cuda.check(
-        lib.band_x(x.data_ptr(), b, h_in, w_in, sx.data_ptr(), tx.data_ptr(),
-                   kx.data_ptr(), s, tx.shape[1], w_out, xs.data_ptr(), stream),
+        lib.band_x(x.data_ptr(), int(x.dtype == bf16), b, h_in, w_in,
+                   sx.data_ptr(), tx.data_ptr(), kx.data_ptr(), s, tx.shape[1],
+                   w_out, xs.data_ptr(), int(mid_dtype == bf16), stream),
         "band_x",
     )
     g = s + (1 if first is not None else 0)
@@ -172,13 +202,15 @@ def separable_bands(
         else None
     )
     _cuda.check(
-        lib.band_y(xs.data_ptr(), b, s, h_in, w_out, sy.data_ptr(),
-                   ty.data_ptr(), ky.data_ptr(), ty.shape[1], h_out,
-                   0 if first is None else first.data_ptr(), gauss.data_ptr(),
-                   0 if dog is None else dog.data_ptr(), stream),
+        lib.band_y(xs.data_ptr(), int(mid_dtype == bf16), b, s, h_in, w_out,
+                   sy.data_ptr(), ty.data_ptr(), ky.data_ptr(), ty.shape[1],
+                   h_out, 0 if first is None else first.data_ptr(),
+                   int(first is not None and first.dtype == bf16),
+                   gauss.data_ptr(), 0 if dog is None else dog.data_ptr(),
+                   stream),
         "band_y",
     )
-    LAUNCHES[counter] += 1
+    LAUNCHES[counter + "_bf16" if x.dtype == bf16 else counter] += 1
     return gauss, dog
 
 
@@ -220,8 +252,8 @@ def octave_oneshot_plain(first: torch.Tensor, config: SiftConfig):
 def octave_oneshot(
     first: torch.Tensor, config: SiftConfig
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """First slice [B, H, W] fp32 -> (gaussians [B, S, H, W], dogs
-    [B, S-1, H, W]), every slice one-shot from ``first``."""
+    """First slice [B, H, W] fp32 or bf16 -> fp32 (gaussians [B, S, H, W],
+    dogs [B, S-1, H, W]), every slice one-shot from ``first``."""
     b, h, w = first.shape
     tx, ty = oneshot_tables(config, h, w)
     return separable_bands(
@@ -336,9 +368,9 @@ def seed_octave_plain(gray: torch.Tensor, config: SiftConfig):
 def seed_octave(
     gray: torch.Tensor, config: SiftConfig
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Grayscale [B, h, w] fp32 -> octave 0 (gaussians [B, S, H, W], dogs
-    [B, S-1, H, W]) at H, W = h, w times 1/delta_min, with the seed
-    upsample and blur folded into every slice's pass tables."""
+    """Grayscale [B, h, w] fp32 or bf16 -> fp32 octave 0 (gaussians
+    [B, S, H, W], dogs [B, S-1, H, W]) at H, W = h, w times 1/delta_min,
+    with the seed upsample and blur folded into every slice's pass tables."""
     b, h, w = gray.shape
     tx, ty = seed_tables(config, h, w)
     return separable_bands(

@@ -3,12 +3,16 @@ descriptors and the global compactions.
 
 Port of ``siftmetal_tpu/sift/batched.py`` (:43 ``build_pyramid_batch``,
 :112 ``extract_gray_batch``) in the structure of its TPU path. The routing
-of each octave follows the input, not the device: the fused seed kernel
-for octave 0 when ``seed_supports``, the one-shot kernel for octaves of
-at least 176 rows, the incremental cascade otherwise. On a CUDA device
-every kernel wrapper launches its kernel; on the CPU the same wrappers run
-their plain versions. Per-frame counters come back with a leading [B]
-axis.
+follows the configuration and the input, not the device. With
+``use_oneshot_pyramid``: the fused seed kernel for octave 0 when
+``seed_supports``, the one-shot kernel for octaves of at least 176 rows.
+With ``use_pallas_pyramid`` (fp32 only): the fused cascade kernel for the
+remaining octaves of at least 256 rows. The incremental cascade of single
+blurs otherwise. ``pyramid_dtype="bfloat16"`` feeds every one of them a
+bf16 chain. ``detect_slot_fields`` and ``use_fused_describe`` pick the
+detection and describe variants. On a CUDA device every kernel wrapper
+launches its kernel; on the CPU the same wrappers run their plain
+versions. Per-frame counters come back with a leading [B] axis.
 """
 
 from __future__ import annotations
@@ -20,14 +24,16 @@ import torch
 from ..config import SiftConfig
 from ..ops.image import decimate_2x
 from ..ops.kernels import pyramid as _oneshot
+from ..ops.kernels.cascade import octave_cascade
 from ..ops.kernels.patches import (
     descriptor_lanes,
+    orient_desc_lanes,
     orientation_hist_lanes,
     prepare_patch_fields,
 )
 from . import describe as _describe
 from . import detect as _detect
-from .pyramid import cascade_slices, seed_image
+from .pyramid import cascade_slices, is_bf16, seed_image
 
 # Profiler ranges of the stages (read by chip_smoke.py's breakdown; free
 # when no profiler runs).
@@ -42,16 +48,29 @@ def build_pyramid_batch(
     shapes = config.octave_shapes(h, w, n_octaves)
     gaussians: List[torch.Tensor] = []
     dogs: List[torch.Tensor] = []
-    seed_fused = _oneshot.seed_supports(config, h, w)
+    # bf16 mode: the chain every blur reads is bf16, every emitted slice
+    # the fp32 accumulator (sift/pyramid.py).
+    bf16 = is_bf16(config)
+    if bf16:
+        gray = gray.to(torch.bfloat16)
+    use_oneshot = config.use_oneshot_pyramid
+    use_cascade = config.use_pallas_pyramid and not bf16
+    seed_fused = use_oneshot and _oneshot.seed_supports(config, h, w)
     first = None if seed_fused else seed_image(gray, config)
     for o in range(n_octaves):
         if o > 0:
             prev = gaussians[o - 1][:, config.n_scales_per_octave]
+            if bf16:
+                prev = prev.to(torch.bfloat16)
             first = decimate_2x(prev, shapes[o]).contiguous()
         if o == 0 and seed_fused:
             stack, dog = _oneshot.seed_octave(gray, config)
-        elif _oneshot.supports(config, shapes[o][0]):
-            stack, dog = _oneshot.octave_oneshot(first, config)
+        elif use_oneshot and _oneshot.supports(config, shapes[o][0]):
+            stack, dog = _oneshot.octave_oneshot(
+                first.to(torch.bfloat16) if bf16 else first, config
+            )
+        elif use_cascade and shapes[o][0] >= 256:
+            stack, dog = octave_cascade(first, config)
         else:
             stack = torch.stack(cascade_slices(first, o, config), dim=1)
             dog = stack[:, 1:] - stack[:, :-1]
@@ -83,13 +102,22 @@ def _describe_octaves(gaussians, dogs, per_octave, config: SiftConfig):
     keypoint compaction and raw orientation histograms, one smoothing and
     peak pass over all octaves, then per-octave lane compaction and
     descriptors."""
+    if config.use_band_patches:
+        raise NotImplementedError(
+            "use_band_patches=True: the band-resident patch kernels "
+            "(_lanes_banded_call, siftmetal_tpu/ops/pallas/patches.py:1053, "
+            "row 9 of the kernel table in PERF.md) are not ported yet"
+        )
     b = gaussians[0].shape[0]
     dev = gaussians[0].device
     n_octaves = len(gaussians)
 
     lane_overflow = torch.zeros((b,), dtype=torch.int32, device=dev)
-    # Phase A: per-octave keypoint compaction + raw orientation histograms.
+    # Phase A: per-octave keypoint compaction + raw orientation histograms
+    # (or, fused, the whole describe stage of the octave in one kernel:
+    # no lane compaction, rows carry the peaks' validity).
     stage = []   # (octave, budget, kpc, fields, hist)
+    desc_rows = []
     for o in range(n_octaves):
         h, w = dogs[o].shape[-2:]
         budget = _detect.keypoint_budget(config, (h, w), o)
@@ -100,12 +128,17 @@ def _describe_octaves(gaussians, dogs, per_octave, config: SiftConfig):
         fields = prepare_patch_fields(gaussians[o], config)
         frame_kp = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(budget)
         flat = lambda a: a.reshape(b * budget)
+        if config.use_fused_describe:
+            desc_rows.append(_fused_rows(o, kpc, fields, frame_kp, config))
+            continue
         hist = orientation_hist_lanes(
             fields, flat(kpc.scale), flat(kpc.x_oct), flat(kpc.y_oct),
             flat(kpc.sigma_oct), config, valid=flat(kpc.valid), frame=frame_kp,
         ).reshape(b, budget, -1)
         stage.append((o, budget, kpc, fields, hist))
 
+    if not stage:
+        return desc_rows, lane_overflow
     # Smoothing + peak detection once over every octave's lanes.
     hist_all = torch.cat([s[4] for s in stage], dim=1)
     hist_all = _describe._smooth_circular(
@@ -115,7 +148,6 @@ def _describe_octaves(gaussians, dogs, per_octave, config: SiftConfig):
 
     # Phase B: per-octave (keypoint, orientation) lane compaction +
     # descriptors.
-    desc_rows = []
     off = 0
     for o, budget, kpc, fields, _hist in stage:
         theta = theta_all[:, off:off + budget]
@@ -150,6 +182,30 @@ def _describe_octaves(gaussians, dogs, per_octave, config: SiftConfig):
             )
         )
     return desc_rows, lane_overflow
+
+
+def _fused_rows(o: int, kpc, fields, frame_kp, config: SiftConfig):
+    """Octave ``o``'s descriptor rows from the fused orientation+descriptor
+    kernel: ``max_ori`` rows per keypoint slot, no lane compaction; a row
+    is valid where its keypoint had that peak."""
+    b, budget = kpc.valid.shape
+    m = config.max_orientations_per_keypoint
+    flat = lambda a: a.reshape(b * budget)
+    raw, theta, ov = orient_desc_lanes(
+        fields, flat(kpc.scale), flat(kpc.x_oct), flat(kpc.y_oct),
+        flat(kpc.sigma_oct), config, valid=flat(kpc.valid), frame=frame_kp,
+    )
+    n_lanes = budget * m
+    rep = lambda a: a.repeat_interleave(m, dim=1)
+    return dict(
+        valid=(ov.reshape(b, budget, m) & kpc.valid[:, :, None]).reshape(b, n_lanes),
+        octave=torch.full((b, n_lanes), o, dtype=torch.int32, device=theta.device),
+        x=rep(kpc.x),
+        y=rep(kpc.y),
+        sigma=rep(kpc.sigma),
+        theta=theta.reshape(b, n_lanes),
+        features=_describe.quantize_descriptors(raw, config).reshape(b, n_lanes, -1),
+    )
 
 
 def _compact_all(per_octave, desc_rows, lane_overflow, counters, config: SiftConfig):

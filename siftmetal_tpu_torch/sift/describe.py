@@ -42,14 +42,10 @@ def _smooth_circular(hist: torch.Tensor, iterations: int) -> torch.Tensor:
     return hist
 
 
-def orientation_peaks(
-    hist: torch.Tensor, config: SiftConfig
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Principal orientations from smoothed histograms [..., n_bins]:
-    local maxima >= peak_threshold * max, parabolic refinement, IPOL's
-    half-bin shift. Returns (theta [..., MAX_ORI] in (-pi, pi], valid);
-    peaks are ordered by height, ties by lower bin (a stable sort, as
-    ``lax.top_k`` orders them)."""
+def _peak_map(hist: torch.Tensor, config: SiftConfig):
+    """(is_peak, theta) per bin of smoothed histograms [..., n_bins]: local
+    maxima >= peak_threshold * max, parabolic refinement, IPOL's half-bin
+    shift, theta wrapped to [-pi, pi)."""
     n = config.n_orientation_bins
     prev = torch.roll(hist, 1, dims=-1)
     nxt = torch.roll(hist, -1, dims=-1)
@@ -62,12 +58,56 @@ def orientation_peaks(
     offset = (prev - nxt) / (2.0 * (prev + nxt - 2.0 * hist))
     bins = torch.arange(n, dtype=torch.float32, device=hist.device)
     theta = (bins + 0.5 + offset) * (_TWO_PI / n)
-    theta = torch.remainder(theta + math.pi, _TWO_PI) - math.pi
+    return is_peak, torch.remainder(theta + math.pi, _TWO_PI) - math.pi
+
+
+def orientation_peaks(
+    hist: torch.Tensor, config: SiftConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Principal orientations from smoothed histograms [..., n_bins].
+    Returns (theta [..., MAX_ORI], valid); peaks are ordered by height,
+    ties by lower bin (a stable sort, as ``lax.top_k`` orders them)."""
+    is_peak, theta = _peak_map(hist, config)
     score = torch.where(is_peak, hist, torch.full_like(hist, float("-inf")))
     k = config.max_orientations_per_keypoint
     top, idx = torch.sort(score, dim=-1, descending=True, stable=True)
     top, idx = top[..., :k], idx[..., :k]
     return torch.gather(theta, -1, idx), torch.isfinite(top)
+
+
+def _pick_bin_order(is_peak: torch.Tensor, values: torch.Tensor, k: int) -> torch.Tensor:
+    """``values`` at the first ``k`` peaks in bin order, [..., k]; zero
+    where a lane has fewer peaks."""
+    rank = torch.cumsum(is_peak.to(torch.int32), -1)
+    zero = torch.zeros_like(values)
+    return torch.stack(
+        [torch.where(is_peak & (rank == p + 1), values, zero).sum(-1) for p in range(k)],
+        -1,
+    )
+
+
+def orientation_peaks_bin_order(
+    hist: torch.Tensor, config: SiftConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused kernel's peak rule: the first MAX_ORI peaks in BIN order
+    (IPOL's emission order). Differs from :func:`orientation_peaks` only
+    in order, and in the set only for more than MAX_ORI peaks. Returns
+    (theta [..., MAX_ORI], zero where invalid; valid)."""
+    is_peak, theta = _peak_map(hist, config)
+    k = config.max_orientations_per_keypoint
+    valid = _pick_bin_order(is_peak, torch.ones_like(theta), k) > 0.0
+    return _pick_bin_order(is_peak, theta, k), valid
+
+
+def peak_conditioning(hist: torch.Tensor, config: SiftConfig) -> torch.Tensor:
+    """max / |prev + next - 2 h| at each kept peak (bin order, [..., MAX_ORI];
+    zero where none): how far the parabolic offset amplifies a relative
+    error of the histogram. Comparisons of two implementations scale their
+    theta tolerance by it."""
+    is_peak, _ = _peak_map(hist, config)
+    curv = (torch.roll(hist, 1, dims=-1) + torch.roll(hist, -1, dims=-1) - 2.0 * hist).abs()
+    cond = hist.amax(-1, keepdim=True) / curv.clamp(min=1e-30)
+    return _pick_bin_order(is_peak, cond, config.max_orientations_per_keypoint)
 
 
 def quantize_descriptors(raw: torch.Tensor, config: SiftConfig) -> torch.Tensor:

@@ -5,8 +5,12 @@ takes: the detection kernel (``ops/kernels/detect.py``) compacts each
 octave's candidates into per-row slots with the iteration-1 Taylor step,
 then ONE cross-octave tail (:func:`_tail_all_octaves`) accepts the
 candidates that converge at once and walks the few that move, re-deriving
-their Taylor step from 19-point DoG gathers. Every array carries a leading
-frame axis [B, ...] where the JAX package vmapped over frames.
+their Taylor step from 19-point DoG gathers. With
+``detect_slot_fields=False`` the lean kernel emits candidate positions
+only; the tail compacts each octave's slot grid to its candidate budget
+and derives the iteration-1 step from the same 19-point gather. Every
+array carries a leading frame axis [B, ...] where the JAX package vmapped
+over frames.
 """
 
 from __future__ import annotations
@@ -210,6 +214,28 @@ def _taylor_from_stencil(v: torch.Tensor, edge_threshold: float):
     return oi, oj, os_, val, edge_ok(hii, hjj, hij, edge_threshold)
 
 
+def _stencil_lookup(dog_all, dbase, h, w, edge_threshold: float):
+    """``lookup(s, i, j)`` over lanes [B, K] of the flat DoG concatenation
+    ``dog_all`` [B, total]: one 19-point gather with per-lane strides
+    (octave shapes differ), then the Taylor step and edge test there."""
+    b = dog_all.shape[0]
+    hw = h * w
+    offs = torch.tensor(_OFFS19, dtype=torch.int64, device=dog_all.device)
+
+    def lookup(s, i, j):
+        base = dbase + (s * h + i) * w + j                      # [B, k]
+        idx = (
+            base[:, None, :]
+            + offs[None, :, 0, None] * hw[:, None, :]
+            + offs[None, :, 1, None] * w[:, None, :]
+            + offs[None, :, 2, None]
+        )                                                       # [B, 19, k]
+        v = torch.gather(dog_all, 1, idx.reshape(b, -1)).reshape(idx.shape)
+        return _taylor_from_stencil(v, edge_threshold)
+
+    return lookup
+
+
 def _refine_batched(
     lookup,
     s_max: int,
@@ -271,7 +297,8 @@ def detect_all_octaves_batch(
     for dog in dogs:
         outs.append(
             detect_candidates(
-                dog, 0.8 * config.dog_threshold, config.edge_threshold
+                dog, 0.8 * config.dog_threshold, config.edge_threshold,
+                emit_fields=config.detect_slot_fields,
             )
         )
         shapes.append(tuple(dog.shape[-2:]))
@@ -289,6 +316,7 @@ def _tail_all_octaves(
     """The cross-octave slot tail over a batch: iteration-1 acceptance of
     every octave's slot grid, one shared mover block walked by 19-point
     DoG gathers, the final acceptance, and the per-octave re-split."""
+    lean = not config.detect_slot_fields
     mo = config.max_interpolation_offset
     ratio = 2.0 ** (1.0 / config.n_scales_per_octave)
     dev = dogs[0].device
@@ -308,17 +336,31 @@ def _tail_all_octaves(
         n_sc, ht, slots = out.cand_col.shape[1:]
         m_o = n_sc * ht * slots
         lane = torch.arange(m_o, device=dev)
+        s_l = (lane // (ht * slots) + 1).expand(b, m_o)
+        i_l = ((lane % (ht * slots)) // slots + 1).expand(b, m_o)
+        j_l = flat(out.cand_col).long() + 1
+        ok_l = flat(out.slot_ok)
+        if lean:
+            # Compact the slot grid to the octave's candidate budget
+            # BEFORE any per-lane work; what does not fit is counted.
+            m_o = extrema_candidate_budget(config, shapes[o])
+            order_o, n_k, c_drop = compact_indices(ok_l, m_o)
+            ok_l = torch.arange(m_o, device=dev) < n_k[:, None]
+            pick = lambda a: torch.where(ok_l, torch.gather(a, 1, order_o), 1)
+            s_l, i_l, j_l = pick(s_l), pick(i_l), pick(j_l)
+            drops = drops + c_drop
+        else:
+            c_oi, c_oj, c_os, c_val = out.cand_fields
+            oi_c.append(flat(c_oi))
+            oj_c.append(flat(c_oj))
+            os_c.append(flat(c_os))
+            val_c.append(flat(c_val))
+            edge_c.append(flat(out.cand_edge))
         seg.append(m_o)
-        s_c.append((lane // (ht * slots) + 1).expand(b, m_o))
-        i_c.append(((lane % (ht * slots)) // slots + 1).expand(b, m_o))
-        j_c.append(flat(out.cand_col).long() + 1)
-        ok_c.append(flat(out.slot_ok))
-        c_oi, c_oj, c_os, c_val = out.cand_fields
-        oi_c.append(flat(c_oi))
-        oj_c.append(flat(c_oj))
-        os_c.append(flat(c_os))
-        val_c.append(flat(c_val))
-        edge_c.append(flat(out.cand_edge))
+        s_c.append(s_l)
+        i_c.append(i_l)
+        j_c.append(j_l)
+        ok_c.append(ok_l)
         h, w = shapes[o]
         sig_rows.append(torch.tensor(config.octave_sigmas(o), dtype=torch.float32))
         full = lambda v, dt: torch.full((m_o,), v, dtype=dt, device=dev)
@@ -336,12 +378,21 @@ def _tail_all_octaves(
 
     cat = lambda xs: torch.cat(xs, -1)
     s_idx, i_idx, j_idx, ok = cat(s_c), cat(i_c), cat(j_c), cat(ok_c)
-    oi1, oj1, os1, val1, edge1 = cat(oi_c), cat(oj_c), cat(os_c), cat(val_c), cat(edge_c)
     delta_l, sgo_l, h_l, w_l, oct_l = cat(delta_c), cat(sgo_c), cat(h_c), cat(w_c), cat(oct_c)
     sig_table = cat(sig_rows).to(dev)
     n_sc_int = outs[0].cand_col.shape[1]
     dog_all = cat(dog_parts)                                # [B, total]
     dbase_l = torch.tensor(dbase, dtype=torch.int64, device=dev)[oct_l]
+    bcast = lambda a: a.expand(b, a.shape[-1])
+
+    if lean:
+        # Iteration-1 Taylor step + edge test of every compacted candidate:
+        # one flat 19-point gather, exactly the mover walk's lookup.
+        oi1, oj1, os1, val1, edge1 = _stencil_lookup(
+            dog_all, bcast(dbase_l), bcast(h_l), bcast(w_l), config.edge_threshold
+        )(s_idx, i_idx, j_idx)
+    else:
+        oi1, oj1, os1, val1, edge1 = cat(oi_c), cat(oj_c), cat(os_c), cat(val_c), cat(edge_c)
 
     def accept(cand_valid, s_f, i_f, j_f, conv, oi, oj, os_, val, eok, dlt, sgo, hh, ww):
         pass_hard = conv & (val.abs() > config.dog_threshold)
@@ -369,7 +420,6 @@ def _tail_all_octaves(
         )
 
     conv1 = (oi1.abs() < mo) & (oj1.abs() < mo) & (os1.abs() < mo)
-    bcast = lambda a: a.expand(b, a.shape[-1])
     kp_g = accept(
         ok & conv1, s_idx, i_idx, j_idx, conv1 & ok, oi1, oj1, os1, val1,
         edge1, bcast(delta_l), bcast(sgo_l), bcast(h_l), bcast(w_l),
@@ -390,21 +440,10 @@ def _tail_all_octaves(
 
     def walk(lo, hi):
         """Refinement walk over lanes [lo, hi) of the mover block."""
-        h_s, w_s, db_s = h_m[:, lo:hi], w_m[:, lo:hi], dbase_m[:, lo:hi]
-        hw_s = h_s * w_s
-        offs = torch.tensor(_OFFS19, dtype=torch.int64, device=dev)
-
-        def lookup(s, i, j):
-            base = db_s + (s * h_s + i) * w_s + j                  # [B, k]
-            idx = (
-                base[:, None, :]
-                + offs[None, :, 0, None] * hw_s[:, None, :]
-                + offs[None, :, 1, None] * w_s[:, None, :]
-                + offs[None, :, 2, None]
-            )                                                       # [B, 19, k]
-            v = torch.gather(dog_all, 1, idx.reshape(b, -1)).reshape(idx.shape)
-            return _taylor_from_stencil(v, config.edge_threshold)
-
+        h_s, w_s = h_m[:, lo:hi], w_m[:, lo:hi]
+        lookup = _stencil_lookup(
+            dog_all, dbase_m[:, lo:hi], h_s, w_s, config.edge_threshold
+        )
         return _refine_batched(
             lookup, n_sc_int,
             s0_all[:, lo:hi], i0_all[:, lo:hi], j0_all[:, lo:hi], h_s, w_s,

@@ -1,9 +1,14 @@
-"""Seed image and the incremental Gaussian cascade (fp32).
+"""Seed image and the incremental Gaussian cascade (fp32 or bf16 chain).
 
 Port of ``siftmetal_tpu/sift/pyramid.py`` ``seed_image`` :41 and
 ``cascade_slices`` :78. Every blur goes through the band kernel wrapper
 (``ops/kernels/blur.py``): its plain version on the CPU, its CUDA kernel
 on the card.
+
+With ``pyramid_dtype="bfloat16"`` the chain each blur READS is bf16 and
+every EMITTED slice is the blur's fp32 accumulator: Gaussians stored in
+bf16 would collide neighbouring DoG samples into plateaus, which the
+strict extremum test rejects.
 """
 
 from __future__ import annotations
@@ -17,19 +22,19 @@ from ..ops.image import upsample_bilinear_2x
 from ..ops.kernels.blur import blur_stack
 
 
-def _check_fp32(config: SiftConfig) -> None:
-    if config.pyramid_dtype != "float32":
-        raise NotImplementedError(
-            f"pyramid_dtype={config.pyramid_dtype!r}: the port runs the "
-            "fp32 pyramid only"
-        )
+def is_bf16(config: SiftConfig) -> bool:
+    """True for the bf16 blur chain; raises on an unknown pyramid_dtype."""
+    if config.pyramid_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unsupported pyramid_dtype {config.pyramid_dtype!r}")
+    return config.pyramid_dtype == "bfloat16"
 
 
 def seed_image(gray: torch.Tensor, config: SiftConfig) -> torch.Tensor:
-    """Grayscale [..., H, W] -> blurred seed v(0, 0): 2x bilinear upsample
-    when delta_min = 0.5 (none at 1.0), then a blur by
-    sqrt(sigma_min^2 - sigma_input^2) / delta_min."""
-    _check_fp32(config)
+    """Grayscale [..., H, W] (fp32, or bf16 in the fast mode) -> blurred
+    fp32 seed v(0, 0): 2x bilinear upsample when delta_min = 0.5 (none at
+    1.0), then a blur by sqrt(sigma_min^2 - sigma_input^2) / delta_min.
+    The result is the blur's fp32 accumulator (what the JAX package's
+    callers ask for with ``out_dtype=float32``)."""
     if config.delta_min == 1.0:
         scaled = gray
     elif config.delta_min == 0.5:
@@ -42,12 +47,14 @@ def seed_image(gray: torch.Tensor, config: SiftConfig) -> torch.Tensor:
 def cascade_slices(
     first: torch.Tensor, o: int, config: SiftConfig
 ) -> List[torch.Tensor]:
-    """Progressively blurred slices of octave ``o``: slice s is slice s-1
-    blurred by the incremental sigma rho[s-1 -> s]."""
-    _check_fp32(config)
-    slices = [first]
-    chain = first
+    """Progressively blurred fp32 slices of octave ``o``: slice s is slice
+    s-1 blurred by the incremental sigma rho[s-1 -> s]. In the bf16 mode
+    each blur reads the previous slice rounded to bf16."""
+    bf16 = is_bf16(config)
+    slices = [first.float()]
+    chain = first.to(torch.bfloat16) if bf16 else first
     for rho in config.incremental_sigmas(o):
-        chain = blur_stack(chain, rho)
-        slices.append(chain)
+        out = blur_stack(chain, rho)
+        chain = out.to(torch.bfloat16) if bf16 else out
+        slices.append(out)
     return slices

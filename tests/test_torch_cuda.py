@@ -14,13 +14,19 @@ from siftmetal_tpu_torch.config import SiftConfig
 from siftmetal_tpu_torch.ops import gaussian as PG
 from siftmetal_tpu_torch.ops.kernels import LAUNCHES
 from siftmetal_tpu_torch.ops.kernels import pyramid as PP
-from siftmetal_tpu_torch.ops.kernels.blur import blur_stack
+from siftmetal_tpu_torch.ops.kernels.blur import blur_stack, blur_tables
+from siftmetal_tpu_torch.ops.kernels.cascade import (
+    octave_cascade,
+    octave_cascade_plain,
+)
 from siftmetal_tpu_torch.ops.kernels.detect import (
     detect_candidates,
     detect_candidates_plain,
 )
 from siftmetal_tpu_torch.ops.kernels.patches import (
     descriptor_lanes,
+    orient_desc_lanes,
+    orient_desc_lanes_plain,
     orientation_hist_lanes,
     prepare_patch_fields,
 )
@@ -109,3 +115,137 @@ def test_patch_kernels_match_plain(cuda_dev):
     # Deterministic: a second launch repeats bit for bit.
     assert torch.equal(d, descriptor_lanes(fields, scale, x, y, sig, th, CFG,
                                            valid=valid, frame=frame))
+
+
+@pytest.mark.cuda
+def test_bf16_band_kernels_match_plain(cuda_dev):
+    """bf16-input band passes vs their plain versions. The cascade blur's
+    bf16 scratch is bit-identical by construction (separate roundings on
+    both sides), so its fp32 result differs only by the Y pass's FMA
+    contraction (1e-5, as the fp32 forms); seed and one-shot never round
+    between the passes (1e-5)."""
+    fast = SiftConfig(delta_min=1.0, pyramid_dtype="bfloat16")
+    rng = np.random.default_rng(4)
+    gray = _t(rng.uniform(0, 1, (2, 200, 300)).astype(np.float32), cuda_dev).to(torch.bfloat16)
+    assert PP.seed_supports(fast, 200, 300)
+    n0 = LAUNCHES["seed_octave_bf16"]
+    g, d = PP.seed_octave(gray, fast)
+    gr, dr = PP.seed_octave_plain(gray, fast)
+    assert LAUNCHES["seed_octave_bf16"] == n0 + 1
+    assert g.dtype == torch.float32 and d.dtype == torch.float32
+    assert (g - gr).abs().max().item() < 1e-5
+    assert (d - dr).abs().max().item() < 1e-5
+    first = g[:, 3].to(torch.bfloat16).contiguous()
+    g1, d1 = PP.octave_oneshot(first, fast)
+    g1r, d1r = PP.octave_oneshot_plain(first, fast)
+    assert torch.equal(g1[:, 0], first.float())
+    assert (g1 - g1r).abs().max().item() < 1e-5
+    assert (d1 - d1r).abs().max().item() < 1e-5
+    for img in (first, first[:, :7, :10].contiguous()):
+        for sigma in (0.6131, 1.5453):
+            tx, ty = blur_tables(float(sigma), *img.shape[-2:])
+            xs_plain = PP.band_x_plain(img, tx, torch.bfloat16)
+            out = blur_stack(img, sigma)
+            ref = PP.band_y_plain(xs_plain, ty, None, False)[0][:, 0]
+            assert out.dtype == torch.float32
+            assert (out - ref).abs().max().item() < 1e-5
+    assert torch.equal(blur_stack(first, 0.6131), blur_stack(first, 0.6131))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 256, 320), (1, 70, 45), (3, 100, 200)])
+def test_cascade_kernel_matches_plain(cuda_dev, shape):
+    """Fused cascade vs the sequential band-table cascade (1e-5: the
+    extension is made once instead of once per stage, and FMAs)."""
+    rng = np.random.default_rng(6)
+    first = _t(rng.uniform(0, 1, shape).astype(np.float32), cuda_dev)
+    n0 = LAUNCHES["octave_cascade"]
+    g, d = octave_cascade(first, CFG)
+    assert LAUNCHES["octave_cascade"] == n0 + 1
+    gr, dr = octave_cascade_plain(first, CFG)
+    assert g.shape == gr.shape and d.shape == dr.shape
+    assert torch.equal(g[:, 0], first)
+    assert (g - gr).abs().max().item() < 1e-5
+    assert (d - dr).abs().max().item() < 1e-5
+
+
+@pytest.mark.cuda
+def test_lean_detect_kernel_matches_full(cuda_dev):
+    """The lean kernel's outputs equal the full kernel's exactly."""
+    rng = np.random.default_rng(9)
+    dog = _t(rng.normal(0, 0.02, (2, 5, 120, 333)).astype(np.float32), cuda_dev)
+    n0 = LAUNCHES["detect_candidates_lean"]
+    full = detect_candidates(dog, 0.8 * 0.0133, 10.0)
+    lean = detect_candidates(dog, 0.8 * 0.0133, 10.0, emit_fields=False)
+    plain = detect_candidates_plain(dog, 0.8 * 0.0133, 10.0, emit_fields=False)
+    assert LAUNCHES["detect_candidates_lean"] == n0 + 1
+    assert lean.cand_fields is None and lean.cand_edge is None
+    assert int(full.n_row_dropped.sum()) > 0          # full rows are exercised
+    for name in ("cand_col", "slot_ok", "n_raw", "n_soft", "n_row_dropped"):
+        assert torch.equal(getattr(lean, name), getattr(full, name)), name
+        assert torch.equal(getattr(lean, name), getattr(plain, name)), name
+
+
+@pytest.mark.cuda
+def test_fused_describe_kernel_matches_plain(cuda_dev):
+    """Fused orientation+descriptor kernel vs its plain version: peaks'
+    validity equal except where a bin sits within 1e-6 relative of the
+    threshold or of a neighbour; theta to 1e-5; descriptors 1e-4 relative
+    to each lane's largest bin, quantized within 1."""
+    rng = np.random.default_rng(3)
+    b, h, w, n = 2, 96, 160, 96
+    gauss = _t(rng.uniform(0, 1, (b, CFG.n_gaussians_per_octave, h, w)).astype(np.float32), cuda_dev)
+    fields = prepare_patch_fields(gauss, CFG)
+    scale = _t(rng.integers(1, 4, n).astype(np.int32), cuda_dev)
+    x = _t(rng.uniform(-0.4, h - 0.6, n).astype(np.float32), cuda_dev)
+    y = _t(rng.uniform(-0.4, w - 0.6, n).astype(np.float32), cuda_dev)
+    sig = _t(rng.uniform(1.0, 3.6, n).astype(np.float32), cuda_dev)
+    valid = _t(np.arange(n) % 5 != 0, cuda_dev)
+    frame = _t(rng.integers(0, b, n).astype(np.int32), cuda_dev)
+    n0 = LAUNCHES["orient_desc"]
+    raw, th, ov = orient_desc_lanes(fields, scale, x, y, sig, CFG, valid=valid, frame=frame)
+    assert LAUNCHES["orient_desc"] == n0 + 1
+    rr, tr, ovr = orient_desc_lanes_plain(fields, scale, x, y, sig, CFG, valid, frame)
+    assert raw.shape == rr.shape == (n, 4, 128)
+    same = (ov == ovr).all(1)
+    assert same.float().mean().item() >= 0.95     # near-threshold lanes are rare
+    assert (raw[~valid] == 0).all() and not ov[~valid].any()
+    assert (raw[~ov] == 0).all() and (th[~ov] == 0).all()
+    # theta to 1e-5, scaled where the parabolic offset is ill-conditioned
+    # (max / |curvature| above 50: white-noise fields have flat histograms).
+    hist = PDS._smooth_circular(
+        PDS.orientation_hist_plain(fields.gi, fields.gj, frame.long(), scale.long(), x, y, sig,
+                                   valid, CFG), CFG.orientation_smoothing_iterations)
+    tol = 1e-5 * torch.clamp(0.02 * PDS.peak_conditioning(hist, CFG), min=1.0)
+    assert ((th - tr).abs()[same] <= tol[same]).all()
+    a, r = raw[same].reshape(-1, 128), rr[same].reshape(-1, 128)
+    assert ((a - r).abs().amax(1) <= 1e-4 * r.abs().amax(1) + 1e-7).all()
+    qd = PDS.quantize_descriptors(a, CFG).int() - PDS.quantize_descriptors(r, CFG).int()
+    assert qd.abs().max().item() <= 1
+    r2, t2, o2 = orient_desc_lanes(fields, scale, x, y, sig, CFG, valid=valid, frame=frame)
+    assert torch.equal(raw, r2) and torch.equal(th, t2) and torch.equal(ov, o2)
+
+
+@pytest.mark.cuda
+def test_wrappers_do_not_fall_back(cuda_dev, monkeypatch):
+    """A wrapper given a CUDA tensor raises when its library cannot load;
+    it never runs the plain version instead."""
+    from siftmetal_tpu_torch.ops import cuda as C
+
+    def broken(name):
+        raise RuntimeError(f"library {name} unavailable")
+
+    monkeypatch.setattr(C, "library", broken)
+    x = torch.zeros((1, 64, 64), device=cuda_dev)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        octave_cascade(x, CFG)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        blur_stack(x.to(torch.bfloat16), 1.0)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        detect_candidates(torch.zeros((1, 5, 16, 16), device=cuda_dev), 0.01, 10.0,
+                          emit_fields=False)
+    fields = prepare_patch_fields(torch.zeros((1, 6, 32, 32), device=cuda_dev), CFG)
+    one = lambda v, dt: torch.full((1,), v, dtype=dt, device=cuda_dev)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        orient_desc_lanes(fields, one(1, torch.int32), one(16.0, torch.float32),
+                          one(16.0, torch.float32), one(1.5, torch.float32), CFG)
