@@ -9,7 +9,9 @@ Phases, in order; any failure exits non-zero and prints no result:
     every CUDA source of the port with nvcc for sm_90a;
  2. kernels: each CUDA kernel against its plain PyTorch version on the
     same inputs, at the shapes the 640x480 batch-8 paths give it, with
-    its tolerance, its time (CUDA events) and its bound;
+    its tolerance, its time (CUDA events) and its bound (fourteen rows;
+    orientation_hist_banded and descriptor_hist_banded also against the
+    staged kernels, bit for bit);
  3. main path: SIFT(480, 640).extract_batch on 8 seeded noise frames (as
     bench.py makes them), with every launch counter set to 0 just before
     and read just after; frames/s from CUDA events;
@@ -18,7 +20,18 @@ Phases, in order; any failure exits non-zero and prints no result:
     set to 0 just before and read just after; then a 4096 x 131072 map
     through the blocked matcher, and one extract_batch each under the
     fused-cascade, lean-detection and fused-describe switches;
- 5. IPOL parity: the butterfly fixture through SIFT(340, 512).extract on
+ 5. verified pairs: a natural-content 480x640 frame (tests/fixtures/
+    proc_a.pgm), six views of it warped on the card by known homographies
+    and one unrelated frame (proc_b.pgm) through
+    SIFT(480, 640, SiftConfig(use_band_patches=True)).extract_batch (the
+    two resident-tile patch kernels; counters set to 0 just before and
+    read just after), match_bruteforce of frame 0 against each other frame
+    and find_homography on each; gates on the recovered homographies, the
+    unrelated frame, keypoint repeatability and equality with the staged
+    route. Then the pose leg on synthetic scenes: find_fundamental ->
+    essential_from_fundamental -> recover_pose -> triangulate, and
+    pnp_ransac; times of RANSAC, the warp and the small batched SVDs;
+ 6. IPOL parity: the butterfly fixture through SIFT(340, 512).extract on
     the card, held to the bounds of tests/test_detect.py and
     tests/test_describe.py; then the fast-preset gates: bf16 against fp32
     keypoint agreement, and butterfly-vs-itself matching.
@@ -97,7 +110,9 @@ class Report:
 
     def bound(self, nbytes, nops, peaks):
         bw, fl = peaks
+        self.ops = nops
         t_b, t_o = nbytes / bw * 1e3, nops / fl * 1e3
+        self.sides = f"bytes {t_b:.4f} ms, operations {t_o:.4f} ms"
         self.row["bound_ms"] = max(t_b, t_o)
         self.row["bound_by"] = "bytes" if t_b >= t_o else "operations"
 
@@ -111,9 +126,23 @@ class Report:
         kind = "" if abs_err is None else f"rel {err:.3e}, "
         print(f"[kernel] {r['name']}: {kind}max_abs_err {r['max_abs_err']:.3e} (tol {self.tol:.1e}) "
               f"{'ok' if ok else 'FAIL'}; {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms; "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {self.sides})", flush=True)
         if not ok:
             raise AssertionError(f"{r['name']} disagrees with its plain version: {err} > {self.tol}")
+
+
+# fp32 operations per sample of the patch kernels' loops (csrc/patches.cu),
+# a division counted as 8 (reciprocal and refinement), sqrtf 6, expf 6,
+# atan2f 35, the floor-mod by 2 pi 15.
+# Orientation: offsets and the box test 6, magnitude 9, Gaussian weight
+# (3 + division + exp + 1) 18, atan2 35, mod 15, bin (scale, round, two
+# integer mods counted 4) 6, the add 1.
+ORI_OPS = 90.0
+# Descriptor: rotation with two divisions 22, the box test 2, magnitude 9,
+# Gaussian weight 18, eight spatial tent weights (sub, abs, division, sub,
+# max: 12 each) 96, atan2 and mod 51, eight orientation tents of 7, and up
+# to 2 x 2 x 2 bin updates of 3 with their 6 partial products 30.
+DESC_OPS = 284.0
 
 
 def _table_ops(b, n_rows, n_cols, tab):
@@ -242,9 +271,7 @@ def phase_kernels(peaks):
     r_max = 3.0 * cfg.orientation_lambda * fl(kpc.sigma_oct)
     n_ori_samples, cov_o = _box_samples(fl(kpc.x_oct), fl(kpc.y_oct), r_max, r_max, valid,
                                         frame, fl(kpc.scale), H, W, b, cfg)
-    # ~40 fp32 operations per sample (distance, Gaussian weight, magnitude,
-    # atan2, bin) — exp/atan2/sqrt counted as a few operations each.
-    rep.bound(f4 * (2 * cov_o + 5 * valid.numel() + hk.numel()), 40.0 * n_ori_samples, peaks)
+    rep.bound(f4 * (2 * cov_o + 5 * valid.numel() + hk.numel()), ORI_OPS * n_ori_samples, peaks)
     rep.check(err, abs_err)
     reports[rep.row["name"]] = rep
 
@@ -279,17 +306,100 @@ def phase_kernels(peaks):
     reach = half * d_args[3]
     _, cov_d = _box_samples(d_args[1], d_args[2], reach, reach, dvalid, frame_l, d_args[0],
                             H, W, b, cfg)
-    # ~150 fp32 operations per sample inside the rotated box (rotation,
-    # Gaussian weight, magnitude, atan2, 16 tent weights, <= 8 bin adds).
-    rep.bound(f4 * (2 * cov_d + 6 * dvalid.numel() + dk.numel()), 150.0 * n_desc_samples, peaks)
+    rep.bound(f4 * (2 * cov_d + 6 * dvalid.numel() + dk.numel()), DESC_OPS * n_desc_samples, peaks)
     rep.check(err, abs_err)
     reports[rep.row["name"]] = rep
     print(f"[kernels] lanes: orientation {int(valid.sum())} valid of {valid.numel()}, "
           f"descriptor {int(dvalid.sum())} valid of {dvalid.numel()}", flush=True)
+    ops = {"orientation": reports["orientation_hist"].ops, "descriptor": reports["descriptor_hist"].ops}
+    _resident_kernels(reports, peaks, fields, cfg,
+                      (ori_args, valid, frame, hk, hp), (d_args, dvalid, frame_l, dk, dp), ops)
     del dk, dp, hk, hp
     _slice2_kernels(reports, peaks, gray, g0, d0, cd, fields, kpc, frame, ori_args, valid,
                     n_ori_samples)
     return reports
+
+
+def _resident_kernels(reports, peaks, fields, cfg, ori, desc, ops):
+    """The resident-tile forms of the two staged patch kernels
+    (``use_band_patches``) on the staged rows' lanes: against the plain
+    version at the staged rows' tolerance, and against the staged kernel
+    bit for bit. ``ori`` / ``desc``: (lane arguments, valid, frame, staged
+    kernel's result, plain result); ``ops``: the staged rows' operation
+    counts."""
+    import torch
+
+    from siftmetal_tpu_torch.config import SiftConfig
+    from siftmetal_tpu_torch.ops.kernels import patches as KP
+    from siftmetal_tpu_torch.sift import describe as DS
+
+    band = SiftConfig(use_band_patches=True)
+    b, _, H, W = fields.gi.shape
+    half = math.sqrt(2.0) * cfg.descriptor_lambda * (cfg.n_histograms_per_axis + 1) / cfg.n_histograms_per_axis
+    stages = {
+        "orientation": (
+            "orientation_hist_banded", KP.ORI_TILE, cfg.ori_patch_radius, ori,
+            lambda a, v, f: KP.orientation_hist_lanes(fields, *a, band, valid=v, frame=f),
+            lambda a, v, f: DS.orientation_hist_plain(fields.gi, fields.gj, f.long(), a[0].long(),
+                                                      *a[1:], v, cfg),
+            lambda sg: torch.ceil(3.0 * cfg.orientation_lambda * sg) + 1,
+        ),
+        "descriptor": (
+            "descriptor_hist_banded", KP.DESC_TILE, cfg.desc_patch_radius, desc,
+            lambda a, v, f: KP.descriptor_lanes(fields, *a, band, valid=v, frame=f),
+            lambda a, v, f: DS.descriptor_plain(fields.gi, fields.gj, f.long(), a[0].long(),
+                                                *a[1:], v, cfg),
+            lambda sg: torch.ceil(half * sg + 0.5) + 1,
+        ),
+    }
+    for stage, (name, tile, radius, (args, valid, frame, staged, plain_out), kernel, plain, reach_of) in stages.items():
+        rep = Report(name, "siftmetal_tpu_torch/csrc/patches.cu",
+                     "siftmetal_tpu/ops/pallas/patches.py:1053", 1e-4)
+        got = kernel(args, valid, frame)
+        _require(torch.equal(got, staged),
+                 f"{name}: differs from the staged kernel (max {_max_err(got, staged):.3e}); "
+                 f"the two share their arithmetic and thread order")
+        err = float(((got - plain_out).abs().amax(1) / plain_out.abs().amax(1).clamp(min=1e-12)).max())
+        lay = KP.tile_layout(fields.gi.shape, valid, frame, args[0], args[1], args[2], tile)
+
+        def plain_route():
+            src = lay.src
+            rows = plain([a[src] for a in args], valid[src], frame[src])
+            out = torch.empty_like(rows)
+            out[src] = rows
+            return out
+
+        rep.row["ms"] = _time_ms(lambda: kernel(args, valid, frame), 10)
+        staged_cfg = SiftConfig()
+        staged_fn = (KP.orientation_hist_lanes if stage == "orientation" else KP.descriptor_lanes)
+        staged_ms = _time_ms(lambda: staged_fn(fields, *args, staged_cfg, valid=valid, frame=frame), 10)
+        layout_ms = _time_ms(lambda: KP.tile_layout(fields.gi.shape, valid, frame, args[0], args[1],
+                                                    args[2], tile), 10)
+        rep.row["plain_ms"] = _time_ms(plain_route, 1, 0)
+        # Bytes: the bounding box of every run's windows once (gi and gj),
+        # the lane arrays and the layout, the output rows.
+        reach = torch.clamp(reach_of(args[3]), max=radius).long()
+        ci = torch.round(args[1]).long().clamp(0, H - 1)
+        cj = torch.round(args[2]).long().clamp(0, W - 1)
+        run = torch.cumsum(lay.first.long(), 0) - 1
+        n_runs = int(lay.first.sum())
+        nv = int(valid.sum())
+        srt = lambda t: t[lay.src][:nv]
+        box = lambda t, how, init: torch.full((n_runs,), init, dtype=torch.long, device=t.device).scatter_reduce(
+            0, run[:nv], srt(t), how)
+        rows = box((ci + reach).clamp(max=H - 1), "amax", -1) - box((ci - reach).clamp(min=0), "amin", H) + 1
+        cols = box((cj + reach).clamp(max=W - 1), "amax", -1) - box((cj - reach).clamp(min=0), "amin", W) + 1
+        region = float((rows * cols).sum())
+        per_run = torch.bincount(run[:nv], minlength=n_runs)
+        rep.bound(4.0 * (2 * region + (len(args) + 4) * valid.numel() + got.numel()), ops[stage], peaks)
+        print(f"[kernel] {name}: equal to the staged kernel bit for bit; {nv} valid lanes in {n_runs} "
+              f"tile runs of side {tile} ({nv / max(n_runs, 1):.3f} lanes a run, most {int(per_run.max())}; "
+              f"{int((per_run > 1).sum())} runs hold several), regions {region / 1e6:.2f} Mpx; "
+              f"in turns here: resident {rep.row['ms']:.4f} ms (of which the PyTorch lane layout "
+              f"{layout_ms:.4f} ms), staged {staged_ms:.4f} ms", flush=True)
+        rep.check(err, _max_err(got, plain_out))
+        reports[name] = rep
+
 
 
 def _slice2_kernels(reports, peaks, gray, g0, d0, cd, fields, kpc, frame, ori_args, valid,
@@ -420,7 +530,7 @@ def _slice2_kernels(reports, peaks, gray, g0, d0, cd, fields, kpc, frame, ori_ar
     _, cov = _box_samples(ori_args[1], ori_args[2], reach, reach, valid, frame, ori_args[0],
                           H, W, b, cfg)
     rep.bound(f4 * (2 * cov + 5 * valid.numel() + raw.numel() + 2 * th.numel()),
-              40.0 * n_ori_samples + 150.0 * n_desc, peaks)
+              ORI_OPS * n_ori_samples + DESC_OPS * n_desc, peaks)
     print(f"[kernel] orient_desc: {int(valid.sum())} keypoints, {int(ovp.sum())} peaks; "
           f"{int(differ.sum())} lanes differ in peak validity, all on a tie (gap < 1e-6); "
           f"theta max err {float(th_err[same].max()):.3e} (largest share of its tolerance "
@@ -772,6 +882,253 @@ def phase_fast_path(reports, parity_ctr, smi_line):
               flush=True)
 
 
+PAIR_KERNELS = ("seed_octave", "octave_oneshot", "blur_stack", "detect_candidates",
+                "orientation_hist_banded", "descriptor_hist_banded")
+# Inlier share of the accepted matches that a warped view must reach, and
+# the share an unrelated frame must stay under.
+PAIR_INLIER_BARS = {"rot15": 0.8, "rot30": 0.6, "scale0.8": 0.8, "scale1.25": 0.8, "tilt": 0.6,
+                    "sim20": 0.8}
+# How far (px) the recovered H may move an image corner from where the
+# known H moves it. 2 px where RANSAC's all-inlier refit is accepted; under
+# rot15 and scale1.25 the refit (its 6144 slots padded with copies of the
+# first inlier) loses an inlier or two at the 3 px threshold, the winning
+# 4-point hypothesis is kept, and a corner, far from the matches, moves by
+# 2-6 px with the draw. The JAX package's RANSAC is the same step for step.
+PAIR_CORNER_BARS = {"rot15": 8.0, "scale1.25": 8.0}
+
+
+def _pair_frames(device):
+    """proc_a, its six warped views (made on ``device``) and proc_b:
+    ([8, 480, 640] frames, [(name, H)] of frames 1..6)."""
+    import numpy as np
+    import torch
+
+    from siftmetal_tpu_torch.ops.warp import similarity_homography, warp_perspective
+    from siftmetal_tpu_torch.utils.io import load_image
+    from siftmetal_tpu_torch.utils.repeatability import standard_warp_battery
+
+    fx = ROOT / "tests" / "fixtures"
+    a = torch.from_numpy(load_image(str(fx / "proc_a.pgm"))).to(device)
+    b = torch.from_numpy(load_image(str(fx / "proc_b.pgm"))).to(device)
+    shape = tuple(a.shape)
+    _require(shape == (480, 640) and tuple(b.shape) == shape, f"pair: fixture shapes {shape}")
+    warps = standard_warp_battery(shape) + [
+        ("sim20", similarity_homography(np.deg2rad(20.0), 0.95, center=(shape[0] / 2, shape[1] / 2)))]
+    views = [warp_perspective(a, h, shape) for _, h in warps]
+    return torch.stack([a] + views + [b]).contiguous(), warps
+
+
+def _verify_pairs(descs, gen):
+    """match_bruteforce of frame 0 against frames 1..7 and find_homography
+    on each: [(Matches, RansacResult, source points, matched points)]."""
+    import torch
+
+    from siftmetal_tpu_torch.geometry import find_homography
+    from siftmetal_tpu_torch.match import match_bruteforce
+
+    xy = lambda k: torch.stack([descs.x[k], descs.y[k]], -1)
+    out = []
+    for j in range(1, descs.valid.shape[0]):
+        mt = match_bruteforce(descs.features[0], descs.features[j], descs.valid[0], descs.valid[j])
+        src, dst = xy(0), xy(j)[mt.target_idx.long()]
+        res = find_homography(gen, src, dst, mt.valid, n_hypotheses=512, inlier_threshold=3.0)
+        out.append((mt, res, src, dst))
+    return out
+
+
+def _pair_gates(kps, verified, warps, shape):
+    """The homography, distractor and repeatability gates of the pair
+    phase; returns the lines to print."""
+    import numpy as np
+    import torch
+
+    from siftmetal_tpu_torch.geometry import homography_from_points
+    from siftmetal_tpu_torch.ops.warp import apply_homography, quad_corners
+    from siftmetal_tpu_torch.sift.detect import Keypoints
+    from siftmetal_tpu_torch.utils.repeatability import keypoint_array, repeatability
+
+    frame = lambda k: Keypoints(*(t[k] for t in kps))
+    pts0, sig0 = keypoint_array(frame(0))
+    corners = torch.from_numpy(quad_corners(*shape))
+    lines, reps = [], {}
+    for k, ((name, h), (mt, res, src, dst)) in enumerate(zip(warps, verified), start=1):
+        n_m, n_in = int(mt.count), int(res.n_inliers)
+        _require(bool(res.ok) and n_m >= 50, f"pair {name}: {n_m} matches")
+        want = apply_homography(torch.from_numpy(h), corners)
+        off = lambda model: float((want - apply_homography(model.cpu(), corners)).norm(dim=-1).max())
+        corner_err = off(res.model)
+        # For the record: an unpadded least-squares fit of the same inliers.
+        inl = torch.nonzero(res.inliers).flatten()
+        plain_fit = off(homography_from_points(src[inl], dst[inl]))
+        _require(corner_err <= PAIR_CORNER_BARS.get(name, 2.0),
+                 f"pair {name}: recovered H moves a corner {corner_err:.3f} px from where the known "
+                 f"H moves it")
+        _require(n_in >= PAIR_INLIER_BARS[name] * n_m,
+                 f"pair {name}: {n_in} inliers of {n_m} matches (bar {PAIR_INLIER_BARS[name]})")
+        pts1, _ = keypoint_array(frame(k))
+        reps[name] = repeatability(pts0, sig0, pts1, h, shape)
+        lines.append(f"{name}: {n_m} matches, {n_in} inliers, corners within {corner_err:.3f} px "
+                     f"(a least-squares fit of the inliers alone: {plain_fit:.3f} px), "
+                     f"repeatability {reps[name]:.4f}")
+    # The bars tests/test_repeatability.py holds the JAX package to on this
+    # image (battery mean 0.78, least 0.72), and 0.6 for every view.
+    battery = [reps[n] for n, _ in warps[:5]]
+    _require(float(np.mean(battery)) >= 0.78 and min(battery) >= 0.72 and min(reps.values()) >= 0.6,
+             f"pair: repeatability {reps}")
+    mt, res = verified[-1][:2]
+    n_m, n_in = int(mt.count), int(res.n_inliers)
+    # A model fitted to 4 random matches explains those 4 and a few more.
+    _require(n_in < max(0.2 * n_m, 8), f"pair distractor: {n_in} inliers of {n_m} matches")
+    lines.append(f"unrelated frame: {n_m} matches, {n_in} inliers")
+    return lines
+
+
+def _pose_leg(device, gen):
+    """find_fundamental -> essential -> recover_pose -> triangulate on the
+    stereo scene of tests/test_geometry.py, and pnp_ransac on the scene of
+    tests/test_slam.py, both made with numpy from their seeds."""
+    import numpy as np
+    import torch
+
+    from siftmetal_tpu_torch.geometry import (
+        essential_from_fundamental,
+        find_fundamental,
+        recover_pose,
+        triangulate,
+    )
+    from siftmetal_tpu_torch.slam.camera import project
+    from siftmetal_tpu_torch.slam.pnp import pnp_ransac
+
+    t_ = lambda a: torch.from_numpy(np.asarray(a, dtype=np.float32)).to(device)
+    rng = np.random.default_rng(7)
+    n = 200
+    pts3 = rng.uniform([-2, -2, 4], [2, 2, 8], (n, 3)).astype(np.float32)
+    k = np.array([[500, 0, 320], [0, 500, 240], [0, 0, 1]], dtype=np.float32)
+    (cx, sx), (cy, sy), (cz, sz) = ((np.cos(a), np.sin(a)) for a in (0.05, -0.1, 0.02))
+    r_true = (np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+              @ np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+              @ np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])).astype(np.float32)
+    t_true = np.array([0.5, 0.05, 0.02], dtype=np.float32)
+
+    def proj(p, rr, tt):
+        uv = (p @ rr.T + tt) @ k.T
+        return (uv[:, :2] / uv[:, 2:]).astype(np.float32)
+
+    x1, x2 = proj(pts3, np.eye(3, dtype=np.float32), np.zeros(3, np.float32)), proj(pts3, r_true, t_true)
+    ones = torch.ones(n, dtype=torch.bool, device=device)
+    # With 60 correspondences replaced by outliers RANSAC separates the two
+    # sets (the bars of tests/test_geometry.py) ...
+    x2_bad = x2.copy()
+    x2_bad[:60] = np.random.default_rng(3).uniform(0, 640, (60, 2))
+    inl = find_fundamental(gen, t_(x1), t_(x2_bad), ones).inliers.cpu().numpy()
+    _require(inl[60:].mean() > 0.95 and inl[:60].mean() < 0.1,
+             f"pose: fundamental inliers {inl[60:].mean():.3f} of the true, {inl[:60].mean():.3f} of the outliers")
+    # ... and the pose comes from the scene itself (one outlier that slips
+    # in turns the linear 8-point's translation by several degrees).
+    res = find_fundamental(gen, t_(x1), t_(x2), ones)
+    e = essential_from_fundamental(res.model, t_(k), t_(k))
+    kinv = np.linalg.inv(k)
+    n1 = (np.c_[x1, np.ones(n)] @ kinv.T)[:, :2]
+    n2 = (np.c_[x2, np.ones(n)] @ kinv.T)[:, :2]
+    w = res.inliers.to(torch.float32)
+    r, t, n_front = recover_pose(e, t_(n1), t_(n2), w)
+    r_err = float(np.abs(r.cpu().numpy() - r_true).max())
+    td, tt = t.cpu().numpy() / float(t.norm()), t_true / np.linalg.norm(t_true)
+    t_err = float(min(np.linalg.norm(td - tt), np.linalg.norm(td + tt)))
+    _require(r_err < 1e-2 and t_err < 2e-2, f"pose: R off by {r_err:.4f}, t direction by {t_err:.4f}")
+    _require(float(n_front) >= 0.95 * float(w.sum()), f"pose: {float(n_front)} of {float(w.sum())} in front")
+    p1 = torch.cat([torch.eye(3, device=device), torch.zeros((3, 1), device=device)], 1)
+    p2 = torch.cat([r, t[:, None]], 1)
+    pts = triangulate(p1, p2, t_(n1), t_(n2))
+    z2 = (pts @ r.T + t)[:, 2]
+    sel = res.inliers.cpu()
+    front = ((pts[:, 2] > 0) & (z2 > 0)).cpu()[sel]
+    # Up to the unknown scale of t the points are the scene's.
+    scale = float(np.linalg.norm(t_true)) / float(t.norm())
+    p_err = float((pts.cpu()[sel] * scale - torch.from_numpy(pts3)[sel]).abs().max())
+    _require(bool(front.all()) and p_err < 0.1, f"pose: triangulated points off by {p_err:.4f}")
+
+    rng = np.random.default_rng(11)
+    kp = np.array([[450, 0, 320], [0, 450, 240], [0, 0, 1]], dtype=np.float32)
+    pts = rng.uniform([-2, -2, 5], [2, 2, 10], (128, 3)).astype(np.float32)
+    cam_true = np.array([0.1, -0.05, 0.2, 0.3, -0.1, 0.4], dtype=np.float32)
+    uv = project(t_(cam_true), t_(kp), t_(pts)).cpu().numpy()
+    uv[:30] += rng.uniform(40, 120, (30, 2)).astype(np.float32)
+    pres = pnp_ransac(gen, t_(pts), t_(uv), torch.ones(128, dtype=torch.bool, device=device), t_(kp))
+    pinl = pres.inliers.cpu().numpy()
+    cam_err = float(np.abs(pres.model.cpu().numpy() - cam_true).max())
+    _require(bool(pres.ok) and pinl[30:].mean() > 0.97 and pinl[:30].mean() < 0.05 and cam_err < 5e-3,
+             f"pose: PnP inliers {pinl[30:].mean():.3f} / {pinl[:30].mean():.3f}, camera off by {cam_err:.5f}")
+    return (f"fundamental with 60 outliers of {n}: {int(inl[60:].sum())} of 140 true and "
+            f"{int(inl[:60].sum())} outliers accepted; clean scene: {int(res.n_inliers)} inliers, "
+            f"R within {r_err:.5f}, "
+            f"t direction within {t_err:.5f}, {int(front.sum())} points in front of both cameras "
+            f"(within {p_err:.4f} of the scene up to scale); PnP camera within {cam_err:.6f}, "
+            f"{int(pres.n_inliers)} inliers of 128 (30 outliers)")
+
+
+def phase_pair(reports, smi_line):
+    """The verified-pair path at full width, through the resident-tile
+    patch kernels."""
+    import torch
+
+    from siftmetal_tpu_torch import SIFT, SiftConfig
+    from siftmetal_tpu_torch.geometry import find_homography
+    from siftmetal_tpu_torch.ops.warp import warp_perspective
+
+    band = SIFT(480, 640, SiftConfig(use_band_patches=True))
+    dev = band.device
+    frames, warps = _pair_frames(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # A few rows of these natural-content frames hold more soft extrema
+    # than a row has slots (the 2x seed packs them densely): counted in
+    # `overflow` and shown, as for the fast preset; the other budgets hold.
+    kps, descs, ctr, launches, verified = _drive(
+        "pair", band, frames, PAIR_KERNELS, reports, lambda d: _verify_pairs(d, gen),
+        may_overflow=True)
+    _require(not any(ctr["descriptor_overflow"]) and not any(ctr["keypoint_overflow"]),
+             f"pair: a descriptor or keypoint budget overflowed: {ctr}")
+    _require(launches["orientation_hist"] == 0 and launches["descriptor_hist"] == 0
+             and launches["orient_desc"] == 0, f"pair: a staged patch kernel was launched: {launches}")
+    for line in _pair_gates(kps, verified, warps, (480, 640)):
+        print(f"[pair] {line}", flush=True)
+    print(f"[pair] descriptors per frame {ctr['n_descriptors']}", flush=True)
+
+    # The same frames through the default (staged) route: equal results.
+    staged = SIFT(480, 640)
+    k0, d0, c0 = staged.extract_batch(frames)
+    _require(all(ctr[k] == [int(v) for v in c0[k].cpu()] for k in ctr),
+             "pair: counters differ from the staged route")
+    fd = (descs.features.int() - d0.features.int()).abs()
+    _require(torch.equal(descs.valid, d0.valid) and int(fd.max()) <= 1,
+             f"pair: descriptors differ from the staged route by {int(fd.max())} steps")
+    print(f"[pair] equal to the staged route: counters, validity, features "
+          f"(largest difference {int(fd.max())} quantisation steps)", flush=True)
+    print(f"[pair] pose leg: {_pose_leg(dev, gen)}", flush=True)
+
+    # --- times ---------------------------------------------------------------
+    t = []
+    for _ in range(2):
+        t += _windows(lambda: band.extract_batch(frames), 1, 5)
+        t += _windows(lambda: staged.extract_batch(frames), 1, 5)
+    print(f"[pair] extract_batch 8x480x640 (proc_a views) in turns with the default route (ms/batch): "
+          f"band {t[0]:.3f}, default {t[1]:.3f}, band {t[2]:.3f}, default {t[3]:.3f} ({smi_line})",
+          flush=True)
+    mt, _, src, dst = verified[0]
+    hw = _windows(lambda: find_homography(gen, src, dst, mt.valid), 3, 5)
+    ww = _windows(lambda: warp_perspective(frames[0], warps[0][1], (480, 640)), 3, 20)
+    svd = {}
+    for name, shp in (("512x8x9", (512, 8, 9)), ("256x12x12", (256, 12, 12)), ("6144x4x4", (6144, 4, 4))):
+        a = torch.randn(shp, device=dev, generator=gen)
+        svd[name] = _median(_windows(lambda: torch.linalg.svd(a, full_matrices=True), 3, 5))
+    print(f"[pair] find_homography, {src.shape[0]} padded correspondences ({int(mt.count)} valid), 512 "
+          f"hypotheses: median {_median(hw):.3f} ms a pair (windows {', '.join(f'{v:.3f}' for v in hw)}); "
+          f"warp_perspective 480x640: median {_median(ww):.3f} ms (windows "
+          f"{', '.join(f'{v:.3f}' for v in ww)}); torch.linalg.svd (ms): "
+          f"{json.dumps({k: round(v, 3) for k, v in svd.items()})} ({smi_line})", flush=True)
+    _profile("pair", lambda: _verify_pairs(band.extract_batch(frames)[1], gen))
+
+
 def _profile(tag, fn):
     """One call of ``fn`` under torch.profiler: the union of device kernel
     time against the host's wall time (the idle share), each stage's host
@@ -946,6 +1303,7 @@ def main() -> int:
     reports = phase_kernels(_peaks(torch.cuda.get_device_name(0)))
     parity_ctr = phase_main_path(reports, smi_line)
     phase_fast_path(reports, parity_ctr, smi_line)
+    phase_pair(reports, smi_line)
     phase_ipol(smi_line)
     phase_fast_gates(smi_line)
     print(f"[done] {time.time() - t0:.1f} s", flush=True)

@@ -1,8 +1,10 @@
 """siftmetal_tpu_torch: the PyTorch/CUDA port of siftmetal_tpu.
 
-Batched SIFT extraction (pyramid, detection, orientation, descriptors) and
-descriptor matching on an NVIDIA H100, with hand-written CUDA kernels for
-the stages the JAX package ran as Pallas TPU kernels. The JAX package ``siftmetal_tpu`` is
+Batched SIFT extraction (pyramid, detection, orientation, descriptors),
+descriptor matching and pair verification (``geometry``: RANSAC
+homography / fundamental, pose; ``slam``: camera math, PnP) on an NVIDIA
+H100, with hand-written CUDA kernels for the stages the JAX package ran
+as Pallas TPU kernels. The JAX package ``siftmetal_tpu`` is
 the reference it is held against; this package imports none of it.
 
     from siftmetal_tpu_torch import SIFT
@@ -11,6 +13,8 @@ the reference it is held against; this package imports none of it.
 
     from siftmetal_tpu_torch.match import match_bruteforce, geometry_score
     m = match_bruteforce(d0.features, d1.features, d0.valid, d1.valid)
+
+    from siftmetal_tpu_torch.geometry import find_homography
 """
 
 from . import match

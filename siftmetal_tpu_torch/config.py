@@ -63,7 +63,13 @@ class SiftConfig:
     describe_lane_chunk: int = 128
 
     # --- kernel variants (live in the port) ---
-    # Band-resident patch kernels: not ported yet; True raises.
+    # Resident-region patch kernels: the staged orientation and descriptor
+    # stages with lanes sorted (one stable sort, no group padding) by the
+    # 2-D tile of their centre in a (frame, scale) plane, one block per tile
+    # run reading its lanes' windows from one shared-memory copy. Same
+    # histograms as the staged kernels, bit for bit. (The TPU kept a
+    # full-width 128-row band resident and ordered lanes with a counting
+    # sort; neither carries over.)
     use_band_patches: bool = False
     # One fused orientation+descriptor kernel per keypoint (peaks kept in
     # bin order, no lane compaction) instead of the two staged kernels.

@@ -74,6 +74,14 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "orient_desc": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                         _I, _I, _F, _I, _F, _I, _I, _I, _I, _F, _P, _P, _P,
                         _P],
+        # gi, gj, B, S, H, W, L, first, run_end, src, frame, scale, x, y,
+        # sigma, radius, tile, n_bins, lam, out, stream
+        "orientation_hist_banded": [_P, _P, _I, _I, _I, _I, _I] + [_P] * 8
+                                   + [_I, _I, _I, _F, _P, _P],
+        # gi, gj, B, S, H, W, L, first, run_end, src, frame, scale, x, y,
+        # sigma, theta, radius, tile, n_hist, n_ori, lam, out, stream
+        "descriptor_hist_banded": [_P, _P, _I, _I, _I, _I, _I] + [_P] * 9
+                                  + [_I, _I, _I, _I, _F, _P, _P],
     },
 }
 

@@ -27,6 +27,8 @@ LAUNCHES: Dict[str, int] = {
     "octave_cascade": 0,
     "detect_candidates_lean": 0,
     "orient_desc": 0,
+    "orientation_hist_banded": 0,
+    "descriptor_hist_banded": 0,
 }
 
 

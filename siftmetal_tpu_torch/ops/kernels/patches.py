@@ -19,8 +19,27 @@ into padded fields, radius buckets, multi-keypoint lane packing, the
 polynomial atan2 and the MXU entry reduction. The gradient fields here are
 unpadded [B, n_scales, H, W]; the kernels bound-check instead.
 
-Bound on an H100: operations (per-sample exp/atan2/sqrt and tent weights);
-see csrc/patches.cu.
+``config.use_band_patches`` sends both staged stages through the
+resident-tile route (``_lanes_banded_call`` :1053 on the TPU, where a
+128-row full-width band of the stacked fields stayed in VMEM). On this
+card the resident region is a 2-D tile of one (frame, scale) plane:
+:func:`tile_layout` keys every lane by the tile of its clamped rounded
+centre, sorts the lanes by key with one stable sort and marks the runs;
+one block per run copies the bounding box of the run's sample windows
+into shared memory once and accumulates lane after lane with the staged
+kernels' arithmetic, writing each row straight to its lane (no un-permute
+pass, bit-identical to the staged kernels). Dropped TPU means: the
+sort-free counting sort with one-hot gathers, the padding of each band to
+groups of 8 lanes, the per-call lane chunks of the scalar prefetch, the
+radius buckets, and the ``rows >= band rows`` gate (a buffer-size
+condition: every octave takes the route here). On a CPU tensor the route
+runs the layout for real and the plain histograms on the sorted lanes,
+then un-permutes. The fused form has no resident variant (none in the JAX
+package either).
+
+Bound on an H100: operations for the descriptor forms (per-sample
+exp/atan2/sqrt and tent weights), bytes for the orientation forms; see
+csrc/patches.cu.
 """
 
 from __future__ import annotations
@@ -80,6 +99,76 @@ def _kernel_args(fields: PatchFields, name, valid, frame, scale, *floats):
     return [valid.to(torch.uint8).contiguous()] + ints + fl
 
 
+# Tile sides of the resident route (centres per side). With the parity
+# radii (18, 40) a block holds (tile + 2 radius)^2 pixels of gi and gj plus
+# its histogram columns in 55 KB / 106 KB of shared memory (csrc/patches.cu).
+ORI_TILE = 32
+DESC_TILE = 16
+
+
+class TileLayout(NamedTuple):
+    """Lanes in tile order: ``src[q]`` is the lane at sorted position q
+    (valid lanes by tile key, stable; invalid lanes last); a run of lanes
+    that share a tile starts at every q with ``first[q]`` and ends before
+    ``run_end[q]``. Invalid lanes are in no run."""
+
+    src: torch.Tensor      # [L] int64
+    first: torch.Tensor    # [L] bool
+    run_end: torch.Tensor  # [L] int64
+
+
+def tile_layout(shape, valid, frame, scale, x_oct, y_oct, tile: int) -> TileLayout:
+    """Tile order of [L] lanes over fields of ``shape`` [B, S, H, W]. The
+    key of a lane is (frame, scale, row tile, column tile) of its rounded
+    centre clamped into the image, as the kernels clamp it. No host
+    synchronisation."""
+    b, s, h, w = shape
+    f = frame.long().clamp(0, b - 1)
+    sc = scale.long().clamp(1, s) - 1
+    zero = torch.zeros_like(x_oct)
+    ci = torch.round(torch.where(valid, x_oct, zero)).long().clamp(0, h - 1)
+    cj = torch.round(torch.where(valid, y_oct, zero)).long().clamp(0, w - 1)
+    tr, tc = -(-h // tile), -(-w // tile)
+    n_tiles = b * s * tr * tc
+    key = ((f * s + sc) * tr + ci // tile) * tc + cj // tile
+    key = torch.where(valid, key, torch.full_like(key, n_tiles))
+    skey, src = torch.sort(key, stable=True)
+    prev = torch.cat([skey.new_full((1,), -1), skey[:-1]])
+    first = (skey != prev) & (skey < n_tiles)
+    return TileLayout(src, first, torch.searchsorted(skey, skey, right=True))
+
+
+def _resident_lanes(fields, name, tile, radius, valid, frame, scale, floats,
+                    n_out, plain, shape_args):
+    """The resident-tile route of either stage: ``plain(valid, frame,
+    scale, *floats)`` on the sorted lanes for CPU fields, the
+    ``name`` kernel for CUDA fields. ``shape_args``: the kernel's
+    arguments between ``tile`` and ``out``."""
+    lay = tile_layout(fields.gi.shape, valid, frame, scale, floats[0], floats[1], tile)
+    if not use_kernel(fields.gi, name):
+        src = lay.src
+        rows = plain(valid[src], frame[src], scale[src], *(a[src] for a in floats))
+        out = torch.empty_like(rows)
+        out[src] = rows
+        return out
+    args = _kernel_args(fields, name, valid, frame, scale, *floats)[1:]
+    b, s, h, w = fields.gi.shape
+    l = scale.shape[0]
+    out = torch.zeros((l, n_out), dtype=torch.float32, device=fields.gi.device)
+    order = [lay.first.to(torch.uint8), lay.run_end.to(torch.int32),
+             lay.src.to(torch.int32)]
+    _cuda.check(
+        getattr(_cuda.library("patches"), name)(
+            fields.gi.data_ptr(), fields.gj.data_ptr(), b, s, h, w, l,
+            *(a.data_ptr() for a in order + args), radius, tile, *shape_args,
+            out.data_ptr(), _cuda.stream_of(out),
+        ),
+        name,
+    )
+    LAUNCHES[name] += 1
+    return out
+
+
 def orientation_hist_lanes(
     fields: PatchFields,
     scale: torch.Tensor,
@@ -92,6 +181,14 @@ def orientation_hist_lanes(
 ) -> torch.Tensor:
     """Raw (un-smoothed) [L, n_bins] orientation histograms."""
     valid, frame = _lanes(scale, valid, frame)
+    if config.use_band_patches:
+        return _resident_lanes(
+            fields, "orientation_hist_banded", ORI_TILE, config.ori_patch_radius,
+            valid, frame, scale, (x_oct, y_oct, sigma_oct), config.n_orientation_bins,
+            lambda v, f, sc, x, y, sg: orientation_hist_plain(
+                fields.gi, fields.gj, f.long(), sc.long(), x, y, sg, v, config),
+            (config.n_orientation_bins, float(config.orientation_lambda)),
+        )
     if not use_kernel(fields.gi, "orientation_hist"):
         return orientation_hist_plain(
             fields.gi, fields.gj, frame.long(), scale.long(), x_oct, y_oct,
@@ -130,6 +227,16 @@ def descriptor_lanes(
 ) -> torch.Tensor:
     """Raw (un-normalized) [L, n_hist^2 * n_ori] descriptor histograms."""
     valid, frame = _lanes(scale, valid, frame)
+    if config.use_band_patches:
+        return _resident_lanes(
+            fields, "descriptor_hist_banded", DESC_TILE, config.desc_patch_radius,
+            valid, frame, scale, (x_oct, y_oct, sigma_oct, theta),
+            config.descriptor_length,
+            lambda v, f, sc, x, y, sg, th: descriptor_plain(
+                fields.gi, fields.gj, f.long(), sc.long(), x, y, sg, th, v, config),
+            (config.n_histograms_per_axis, config.n_descriptor_bins,
+             float(config.descriptor_lambda)),
+        )
     if not use_kernel(fields.gi, "descriptor_hist"):
         return descriptor_plain(
             fields.gi, fields.gj, frame.long(), scale.long(), x_oct, y_oct,

@@ -10,7 +10,9 @@ With ``use_pallas_pyramid`` (fp32 only): the fused cascade kernel for the
 remaining octaves of at least 256 rows. The incremental cascade of single
 blurs otherwise. ``pyramid_dtype="bfloat16"`` feeds every one of them a
 bf16 chain. ``detect_slot_fields`` and ``use_fused_describe`` pick the
-detection and describe variants. On a CUDA device every kernel wrapper
+detection and describe variants; ``use_band_patches`` sends the two staged
+patch stages through their resident-tile kernels (inside the wrappers; the
+fused form has none, as in the JAX package). On a CUDA device every kernel wrapper
 launches its kernel; on the CPU the same wrappers run their plain
 versions. Per-frame counters come back with a leading [B] axis.
 """
@@ -102,12 +104,6 @@ def _describe_octaves(gaussians, dogs, per_octave, config: SiftConfig):
     keypoint compaction and raw orientation histograms, one smoothing and
     peak pass over all octaves, then per-octave lane compaction and
     descriptors."""
-    if config.use_band_patches:
-        raise NotImplementedError(
-            "use_band_patches=True: the band-resident patch kernels "
-            "(_lanes_banded_call, siftmetal_tpu/ops/pallas/patches.py:1053, "
-            "row 9 of the kernel table in PERF.md) are not ported yet"
-        )
     b = gaussians[0].shape[0]
     dev = gaussians[0].device
     n_octaves = len(gaussians)

@@ -118,6 +118,57 @@ def test_patch_kernels_match_plain(cuda_dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 96, 160, 64), (3, 200, 333, 700)])
+def test_resident_patch_kernels_match_staged_and_plain(cuda_dev, shape):
+    """``use_band_patches``: the resident-tile kernels equal the staged
+    kernels bit for bit (same thread order and arithmetic, gi/gj read from
+    a shared-memory copy) and the plain versions as the staged kernels do
+    (1e-5 / 1e-4 relative to each lane's largest bin). Lanes cluster on a
+    few centres so that tiles hold several lanes; some lie on the border,
+    some are invalid with garbage coordinates."""
+    band = SiftConfig(use_band_patches=True)
+    b, h, w, n = shape
+    rng = np.random.default_rng(13)
+    gauss = _t(rng.uniform(0, 1, (b, CFG.n_gaussians_per_octave, h, w)).astype(np.float32), cuda_dev)
+    fields = prepare_patch_fields(gauss, CFG)
+    centres = rng.uniform([-0.4, -0.4], [h - 0.6, w - 0.6], (max(n // 8, 4), 2))
+    pick = rng.integers(0, len(centres), n)
+    xy = centres[pick] + rng.normal(0, 3.0, (n, 2))
+    valid_np = np.arange(n) % 5 != 0
+    xy[~valid_np] = 1e6
+    x = _t(xy[:, 0].astype(np.float32), cuda_dev)
+    y = _t(xy[:, 1].astype(np.float32), cuda_dev)
+    scale = _t(rng.integers(1, 4, n).astype(np.int32), cuda_dev)
+    sig = _t(rng.uniform(1.0, 3.6, n).astype(np.float32), cuda_dev)
+    th = _t(np.where(valid_np, rng.uniform(-3, 3, n), np.nan).astype(np.float32), cuda_dev)
+    valid = _t(valid_np, cuda_dev)
+    frame = _t(rng.integers(0, b, n).astype(np.int32), cuda_dev)
+    n_o, n_d = LAUNCHES["orientation_hist_banded"], LAUNCHES["descriptor_hist_banded"]
+    s_o, s_d = LAUNCHES["orientation_hist"], LAUNCHES["descriptor_hist"]
+    got = orientation_hist_lanes(fields, scale, x, y, sig, band, valid=valid, frame=frame)
+    d = descriptor_lanes(fields, scale, x, y, sig, th, band, valid=valid, frame=frame)
+    assert LAUNCHES["orientation_hist_banded"] == n_o + 1
+    assert LAUNCHES["descriptor_hist_banded"] == n_d + 1
+    assert LAUNCHES["orientation_hist"] == s_o and LAUNCHES["descriptor_hist"] == s_d
+    staged = orientation_hist_lanes(fields, scale, x, y, sig, CFG, valid=valid, frame=frame)
+    d_staged = descriptor_lanes(fields, scale, x, y, sig, th, CFG, valid=valid, frame=frame)
+    assert torch.equal(got, staged) and torch.equal(d, d_staged)
+    assert (got[~valid] == 0).all() and (d[~valid] == 0).all()
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(d).all())
+    ref = PDS.orientation_hist_plain(fields.gi, fields.gj, frame.long(), scale.long(),
+                                     x, y, sig, valid, CFG)
+    assert ((got - ref).abs().amax(1) <= 1e-5 * ref.abs().amax(1) + 1e-7).all()
+    dr = PDS.descriptor_plain(fields.gi, fields.gj, frame.long(), scale.long(),
+                              x, y, sig, th, valid, CFG)
+    assert ((d - dr).abs().amax(1) <= 1e-4 * dr.abs().amax(1) + 1e-7).all()
+    from siftmetal_tpu_torch.ops.kernels.patches import DESC_TILE, tile_layout
+
+    lay = tile_layout(fields.gi.shape, valid, frame, scale, x, y, DESC_TILE)
+    runs = int(lay.first.sum())
+    assert 0 < runs < int(valid.sum())          # some tile holds several lanes
+
+
+@pytest.mark.cuda
 def test_bf16_band_kernels_match_plain(cuda_dev):
     """bf16-input band passes vs their plain versions. The cascade blur's
     bf16 scratch is bit-identical by construction (separate roundings on
@@ -249,3 +300,99 @@ def test_wrappers_do_not_fall_back(cuda_dev, monkeypatch):
     with pytest.raises(RuntimeError, match="unavailable"):
         orient_desc_lanes(fields, one(1, torch.int32), one(16.0, torch.float32),
                           one(16.0, torch.float32), one(1.5, torch.float32), CFG)
+
+
+def _homography_scene(dev, n=512, n_out=200, pad=64):
+    rng = np.random.default_rng(1)
+    h_true = np.array([[0.9, 0.1, 10.0], [-0.05, 1.05, 20.0], [0, 0, 1.0]], np.float32)
+    src = rng.uniform(0, 400, (n, 2)).astype(np.float32)
+    p = np.c_[src, np.ones(n)] @ h_true.T
+    dst = (p[:, :2] / p[:, 2:]).astype(np.float32)
+    dst[:n_out] = rng.uniform(0, 400, (n_out, 2))
+    valid = np.ones(n, bool)
+    valid[-pad:] = False
+    return h_true, _t(src, dev), _t(dst, dev), _t(valid, dev)
+
+
+@pytest.mark.cuda
+def test_ransac_and_pnp_ransac_synchronise_only_in_svd(cuda_dev, monkeypatch):
+    """``find_homography``, ``find_fundamental`` and ``pnp_ransac`` queue
+    their work without reading a value on the host, the library's SVDs
+    aside (``torch.linalg.svd`` checks its convergence flag on the host and
+    has no unchecked form): with ``torch.cuda.set_sync_debug_mode("error")``
+    everywhere but inside ``torch.linalg.svd`` a synchronising call would
+    raise."""
+    from siftmetal_tpu_torch.geometry import find_fundamental, find_homography
+    from siftmetal_tpu_torch.slam.camera import project
+    from siftmetal_tpu_torch.slam.pnp import pnp_ransac
+
+    h_true, src, dst, valid = _homography_scene(cuda_dev)
+    rng = np.random.default_rng(11)
+    k = _t(np.array([[450, 0, 320], [0, 450, 240], [0, 0, 1]], np.float32), cuda_dev)
+    pts = _t(rng.uniform([-2, -2, 5], [2, 2, 10], (128, 3)).astype(np.float32), cuda_dev)
+    cam = _t(np.array([0.1, -0.05, 0.2, 0.3, -0.1, 0.4], np.float32), cuda_dev)
+    uv = project(cam, k, pts)
+    uv[:30] += 80.0
+    ones = torch.ones(128, dtype=torch.bool, device=cuda_dev)
+    gen = torch.Generator(device=cuda_dev)
+
+    def run():
+        gen.manual_seed(0)
+        return (find_homography(gen, src, dst, valid),
+                find_fundamental(gen, src, dst, valid, n_hypotheses=64),
+                pnp_ransac(gen, pts, uv, ones, k))
+
+    run()                    # the libraries set up handles and workspaces
+    torch.cuda.synchronize()
+    real_svd = torch.linalg.svd
+    n_svd = [0]
+
+    def svd_outside_the_check(*args, **kwargs):
+        n_svd[0] += 1
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real_svd(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(torch.linalg, "svd", svd_outside_the_check)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res_h, _, res_p = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert n_svd[0] == 2 + 4 + 2        # hypotheses and refit; F: two each; PnP: two in the DLT
+    inl = res_h.inliers.cpu().numpy()
+    assert inl[200:448].mean() > 0.98 and inl[:200].mean() < 0.05 and not inl[448:].any()
+    assert np.abs(res_h.model.cpu().numpy() - h_true).max() < 0.05
+    assert (res_p.model - cam).abs().max().item() < 5e-3
+
+
+@pytest.mark.cuda
+def test_warp_and_ransac_cpu_vs_cuda(cuda_dev):
+    """``warp_perspective`` on the card against the CPU (1e-5: the same
+    fp32 arithmetic, fused differently); RANSAC on shared indices gives
+    the same inlier mask on both devices."""
+    from siftmetal_tpu_torch.geometry import ransac_from_indices
+    from siftmetal_tpu_torch.geometry.twoview import (
+        homography_from_points,
+        homography_transfer_error,
+    )
+    from siftmetal_tpu_torch.ops.warp import similarity_homography, warp_perspective
+    from siftmetal_tpu_torch.utils.repeatability import standard_warp_battery
+
+    rng = np.random.default_rng(2)
+    img = torch.from_numpy(rng.uniform(0, 1, (2, 120, 160)).astype(np.float32))
+    warps = standard_warp_battery((120, 160)) + [
+        ("sim", similarity_homography(np.deg2rad(20.0), 0.95, (60.0, 80.0)))]
+    for name, h in warps:
+        a = warp_perspective(img, h, (120, 160))
+        b = warp_perspective(img.to(cuda_dev), h, (120, 160))
+        assert b.device.type == "cuda" and (a - b.cpu()).abs().max().item() < 1e-5, name
+    _, src, dst, valid = _homography_scene(cuda_dev)
+    idx = torch.from_numpy(rng.choice(448, (256, 4)).astype(np.int64))
+    args = (homography_from_points, homography_transfer_error, 4, 3.0)
+    on_card = ransac_from_indices(idx.to(cuda_dev), src, dst, valid, *args)
+    on_cpu = ransac_from_indices(idx, src.cpu(), dst.cpu(), valid.cpu(), *args)
+    assert torch.equal(on_card.inliers.cpu(), on_cpu.inliers)
+    assert torch.allclose(on_card.model.cpu(), on_cpu.model, rtol=1e-3, atol=1e-3)

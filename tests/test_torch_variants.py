@@ -3,7 +3,8 @@ fused cascade's plain version against the Pallas kernel (interpret mode)
 and the JAX sequential cascade; the lean detection tail against the JAX
 lean tail and the port's full-fields path; the fused describe stage's
 plain version against the JAX staged XLA reference; and the routing each
-switch selects, observed at the wrappers."""
+switch selects, observed at the wrappers (the resident-tile patch route
+itself is held in tests/test_torch_band.py)."""
 
 import dataclasses
 import pathlib
@@ -17,6 +18,7 @@ import jax.numpy as jnp
 from siftmetal_tpu.config import SiftConfig as JConfig
 from siftmetal_tpu_torch import FAST_BF16_CONFIG, SIFT, SiftConfig
 from siftmetal_tpu_torch.ops.kernels import cascade as PC
+from siftmetal_tpu_torch.ops.kernels import patches as KP
 from siftmetal_tpu_torch.ops.kernels.detect import (
     detect_candidates,
     detect_candidates_plain,
@@ -271,6 +273,8 @@ def calls(monkeypatch):
                 tag = "blur_stack_bf16"
             if name in ("seed_octave", "octave_oneshot") and a[0].dtype == torch.bfloat16:
                 tag = name + "_bf16"
+            if name == "_resident_lanes":
+                tag = a[1]                  # the resident kernel's name
             seen.append(tag)
             return real(*a, **kw)
 
@@ -286,6 +290,7 @@ def calls(monkeypatch):
     spy(PB, "orientation_hist_lanes")
     spy(PB, "descriptor_lanes")
     spy(PB, "orient_desc_lanes")
+    spy(KP, "_resident_lanes")
     return seen
 
 
@@ -333,9 +338,16 @@ def test_pyramid_routing_follows_config(calls, name):
             assert (a - b).abs().max().item() <= tol
 
 
+RESIDENT = ["orientation_hist_banded", "descriptor_hist_banded"]
 DESCRIBE_ROUTES = {
     "default": (SiftConfig(), ["detect_candidates", "orientation_hist_lanes", "descriptor_lanes"],
-                ["detect_candidates_lean", "orient_desc_lanes"]),
+                ["detect_candidates_lean", "orient_desc_lanes"] + RESIDENT),
+    "band": (SiftConfig(use_band_patches=True),
+             ["detect_candidates", "orientation_hist_lanes", "descriptor_lanes"] + RESIDENT,
+             ["detect_candidates_lean", "orient_desc_lanes"]),
+    "band_fused": (SiftConfig(use_band_patches=True, use_fused_describe=True),
+                   ["detect_candidates", "orient_desc_lanes"],
+                   ["orientation_hist_lanes", "descriptor_lanes"] + RESIDENT),
     "lean": (SiftConfig(detect_slot_fields=False), ["detect_candidates_lean", "descriptor_lanes"],
              ["detect_candidates", "orient_desc_lanes"]),
     "fused": (SiftConfig(use_fused_describe=True), ["detect_candidates", "orient_desc_lanes"],
@@ -366,13 +378,6 @@ def test_detect_and_describe_routing_follows_config(calls, name):
         zip(d.x[d.valid].tolist(), d.y[d.valid].tolist(), d.theta[d.valid].tolist())
     )
     assert drows(ds) == drows(ds0)
-
-
-def test_band_patches_raise_until_ported():
-    crop = _gray()[:64, :96]
-    sift = SIFT(64, 96, SiftConfig(use_band_patches=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="row 9"):
-        sift.extract(crop)
 
 
 def test_jax_config_with_switches_round_trips():
