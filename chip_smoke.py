@@ -11,7 +11,10 @@ Phases, in order; any failure exits non-zero and prints no result:
     same inputs, at the shapes the 640x480 batch-8 paths give it, with
     its tolerance, its time (CUDA events) and its bound (fourteen rows;
     orientation_hist_banded and descriptor_hist_banded also against the
-    staged kernels, bit for bit);
+    staged kernels, bit for bit; the descriptor rows launched twice and
+    equal bit for bit, with their registers, stack frame and spills from
+    the build log; the descriptor form's CUDA lane layout against
+    tile_layout, run by run, and a sweep of its tile side);
  3. main path: SIFT(480, 640).extract_batch on 8 seeded noise frames (as
     bench.py makes them), with every launch counter set to 0 just before
     and read just after; frames/s from CUDA events;
@@ -74,6 +77,42 @@ def _smi() -> str:
         capture_output=True, text=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi unavailable"
+
+
+def _ptxas_facts(log: str) -> dict:
+    """Per kernel entry of an ``nvcc -Xptxas -v`` log: registers, stack
+    frame and spill bytes, keyed by the mangled name."""
+    import re
+
+    facts, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            facts.setdefault(name, {}).update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                              spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            facts.setdefault(name, {})["registers"] = int(m.group(1))
+    return facts
+
+
+PTXAS = {}  # kernel entry -> ptxas facts of this run's build
+
+
+def _ptxas_line(fragment: str) -> str:
+    """The ptxas facts of the one entry whose name holds ``fragment``."""
+    hits = [(k, v) for k, v in PTXAS.items() if fragment in k]
+    if len(hits) != 1:
+        return f"ptxas facts of {fragment}: not in this run's build log"
+    f = hits[0][1]
+    return (f"{fragment}: {f.get('registers')} registers, {f.get('stack')} B stack frame, "
+            f"spills {f.get('spill_stores')} B stored / {f.get('spill_loads')} B loaded")
 
 
 def _time_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -297,6 +336,8 @@ def phase_kernels(peaks):
     qd = (DS.quantize_descriptors(dk, cfg).int() - DS.quantize_descriptors(dp, cfg).int()).abs()
     if int(qd.max()) > 1:
         raise AssertionError("descriptor_hist: quantized descriptors differ by more than 1")
+    _require(torch.equal(dk, KP.descriptor_lanes(fields, *d_args, cfg, valid=dvalid, frame=frame_l)),
+             "descriptor_hist: a second launch differs")
     rep.row["ms"] = _time_ms(lambda: KP.descriptor_lanes(
         fields, *d_args, cfg, valid=dvalid, frame=frame_l), 10)
     rep.row["plain_ms"] = _time_ms(lambda: DS.descriptor_plain(
@@ -307,6 +348,8 @@ def phase_kernels(peaks):
     _, cov_d = _box_samples(d_args[1], d_args[2], reach, reach, dvalid, frame_l, d_args[0],
                             H, W, b, cfg)
     rep.bound(f4 * (2 * cov_d + 6 * dvalid.numel() + dk.numel()), DESC_OPS * n_desc_samples, peaks)
+    print(f"[kernel] descriptor_hist: two launches equal bit for bit; "
+          f"{_ptxas_line('17descriptor_kernelINS_6Hist48')}", flush=True)
     rep.check(err, abs_err)
     reports[rep.row["name"]] = rep
     print(f"[kernels] lanes: orientation {int(valid.sum())} valid of {valid.numel()}, "
@@ -359,6 +402,7 @@ def _resident_kernels(reports, peaks, fields, cfg, ori, desc, ops):
         _require(torch.equal(got, staged),
                  f"{name}: differs from the staged kernel (max {_max_err(got, staged):.3e}); "
                  f"the two share their arithmetic and thread order")
+        _require(torch.equal(got, kernel(args, valid, frame)), f"{name}: a second launch differs")
         err = float(((got - plain_out).abs().amax(1) / plain_out.abs().amax(1).clamp(min=1e-12)).max())
         lay = KP.tile_layout(fields.gi.shape, valid, frame, args[0], args[1], args[2], tile)
 
@@ -369,12 +413,22 @@ def _resident_kernels(reports, peaks, fields, cfg, ori, desc, ops):
             out[src] = rows
             return out
 
-        rep.row["ms"] = _time_ms(lambda: kernel(args, valid, frame), 10)
         staged_cfg = SiftConfig()
         staged_fn = (KP.orientation_hist_lanes if stage == "orientation" else KP.descriptor_lanes)
-        staged_ms = _time_ms(lambda: staged_fn(fields, *args, staged_cfg, valid=valid, frame=frame), 10)
-        layout_ms = _time_ms(lambda: KP.tile_layout(fields.gi.shape, valid, frame, args[0], args[1],
-                                                    args[2], tile), 10)
+        torch_layout = lambda: KP.tile_layout(fields.gi.shape, valid, frame, args[0], args[1], args[2], tile)
+        runs = {"resident": lambda: kernel(args, valid, frame),
+                "staged": lambda: staged_fn(fields, *args, staged_cfg, valid=valid, frame=frame),
+                "PyTorch layout": torch_layout}
+        if stage == "descriptor":
+            runs["CUDA layout"] = lambda: KP.tile_runs(fields.gi.shape, valid, frame, args[0], args[1],
+                                                       args[2], tile)
+            _check_tile_runs(runs["CUDA layout"](), lay, valid)
+        # In turns: each form forwards, then backwards.
+        turns = {k: [] for k in runs}
+        for key in list(runs) + list(runs)[::-1]:
+            turns[key].append(_time_ms(runs[key], 10))
+        t = {k: sum(v) / len(v) for k, v in turns.items()}
+        rep.row["ms"] = t["resident"]
         rep.row["plain_ms"] = _time_ms(plain_route, 1, 0)
         # Bytes: the bounding box of every run's windows once (gi and gj),
         # the lane arrays and the layout, the output rows.
@@ -384,22 +438,68 @@ def _resident_kernels(reports, peaks, fields, cfg, ori, desc, ops):
         run = torch.cumsum(lay.first.long(), 0) - 1
         n_runs = int(lay.first.sum())
         nv = int(valid.sum())
-        srt = lambda t: t[lay.src][:nv]
-        box = lambda t, how, init: torch.full((n_runs,), init, dtype=torch.long, device=t.device).scatter_reduce(
-            0, run[:nv], srt(t), how)
+        srt = lambda t_: t_[lay.src][:nv]
+        box = lambda t_, how, init: torch.full((n_runs,), init, dtype=torch.long, device=t_.device).scatter_reduce(
+            0, run[:nv], srt(t_), how)
         rows = box((ci + reach).clamp(max=H - 1), "amax", -1) - box((ci - reach).clamp(min=0), "amin", H) + 1
         cols = box((cj + reach).clamp(max=W - 1), "amax", -1) - box((cj - reach).clamp(min=0), "amin", W) + 1
         region = float((rows * cols).sum())
         per_run = torch.bincount(run[:nv], minlength=n_runs)
         rep.bound(4.0 * (2 * region + (len(args) + 4) * valid.numel() + got.numel()), ops[stage], peaks)
-        print(f"[kernel] {name}: equal to the staged kernel bit for bit; {nv} valid lanes in {n_runs} "
-              f"tile runs of side {tile} ({nv / max(n_runs, 1):.3f} lanes a run, most {int(per_run.max())}; "
-              f"{int((per_run > 1).sum())} runs hold several), regions {region / 1e6:.2f} Mpx; "
-              f"in turns here: resident {rep.row['ms']:.4f} ms (of which the PyTorch lane layout "
-              f"{layout_ms:.4f} ms), staged {staged_ms:.4f} ms", flush=True)
+        layout = "CUDA layout" if stage == "descriptor" else "PyTorch layout"
+        print(f"[kernel] {name}: equal to the staged kernel bit for bit, two launches equal; {nv} valid "
+              f"lanes in {n_runs} tile runs of side {tile} ({nv / max(n_runs, 1):.3f} lanes a run, most "
+              f"{int(per_run.max())}; {int((per_run > 1).sum())} runs hold several), regions "
+              f"{region / 1e6:.2f} Mpx; in turns (ms, forwards then backwards): "
+              f"{json.dumps({k: [round(x, 4) for x in v] for k, v in turns.items()})}; its lane layout "
+              f"({layout}) {t[layout]:.4f} ms = {100.0 * t[layout] / t['resident']:.1f}% of it", flush=True)
+        if stage == "descriptor":
+            print(f"[kernel] {name}: {_ptxas_line('26resident_descriptor_kernelINS_6Hist48')}; "
+                  f"{_ptxas_line('layout_count_kernel')}; {_ptxas_line('layout_scan_kernel')}; "
+                  f"{_ptxas_line('layout_scatter_kernel')}", flush=True)
+            _tile_sweep(fields, cfg, args, valid, frame, staged, tile)
         rep.check(err, _max_err(got, plain_out))
         reports[name] = rep
 
+
+def _check_tile_runs(got, lay, valid):
+    """The CUDA layout against tile_layout: the same run starts and ends,
+    the same lanes in every run (in any order), one head per run."""
+    import torch
+
+    _require(torch.equal(got.first, lay.first) and torch.equal(got.run_end.long(), lay.run_end),
+             "tile_runs: run starts or ends differ from tile_layout")
+    n = lay.src.numel()
+    run = torch.cumsum(lay.first.long(), 0) - 1
+    run = torch.where(torch.arange(n, device=run.device) < int(valid.sum()), run, run.new_full((n,), n))
+    as_sets = lambda src: torch.sort(run * n + src.long()).values
+    _require(torch.equal(as_sets(got.src), as_sets(lay.src)), "tile_runs: a run holds other lanes")
+    n_runs = int(got.runs[0])
+    heads = torch.sort(got.heads[:n_runs].long()).values
+    _require(n_runs == int(lay.first.sum()) and torch.equal(heads, torch.nonzero(lay.first).flatten()),
+             "tile_runs: run heads differ")
+
+
+def _tile_sweep(fields, cfg, args, valid, frame, staged, chosen):
+    """The resident descriptor form at other tile sides: lanes a run and
+    time, in turns (forwards, then backwards), each equal to the staged
+    kernel bit for bit."""
+    import torch
+
+    from siftmetal_tpu_torch.ops.kernels import patches as KP
+
+    tiles = (8, 12, 16, 24, 32)
+    out = {}
+    for tile in tiles + tiles[::-1]:
+        fn = lambda: KP.resident_descriptor_lanes(fields, *args, cfg, valid, frame, tile=tile)
+        if tile not in out:
+            _require(torch.equal(fn(), staged), f"resident descriptor at tile {tile} differs from staged")
+            n_runs = int(KP.tile_runs(fields.gi.shape, valid, frame, args[0], args[1], args[2], tile).runs[0])
+            out[tile] = [int(valid.sum()) / max(n_runs, 1)]
+        out[tile].append(_time_ms(fn, 10))
+    print("[kernel] descriptor_hist_banded tile sweep (side: lanes a run, ms forwards, ms backwards; "
+          f"chosen {chosen}): " + "; ".join(f"{k}: {v[0]:.3f}, {v[1]:.4f}, {v[2]:.4f}" for k, v in out.items()),
+          flush=True)
 
 
 def _slice2_kernels(reports, peaks, gray, g0, d0, cd, fields, kpc, frame, ori_args, valid,
@@ -1167,6 +1267,16 @@ def _profile(tag, fn):
           f"stage spans (ms) {json.dumps(spans)}", flush=True)
     print(f"[profile {tag}] most device time: " + "; ".join(
         f"{name[:44]} {ms:.3f} ms x{c}" for name, (ms, c) in top), flush=True)
+    # The patch kernels by form, whether or not they are among the top.
+    forms = {"descriptor (staged)": "::descriptor_kernel<", "descriptor (resident)": "resident_descriptor",
+             "descriptor layout": "layout_", "fused orient_desc": "orient_desc_kernel"}
+    sums = {}
+    for form, frag in forms.items():
+        hit = [v for k, v in per.items() if frag in k]
+        if hit:
+            sums[form] = f"{sum(ms for ms, _ in hit):.3f} ms x{sum(c for _, c in hit)}"
+    if sums:
+        print(f"[profile {tag}] patch kernels: {json.dumps(sums)}", flush=True)
 
 
 def phase_ipol(smi_line):
@@ -1293,6 +1403,8 @@ def main() -> int:
     resolve_device("cuda")
     tb = time.time()
     logs = _cuda.build_all()
+    for log in logs.values():
+        PTXAS.update(_ptxas_facts(log))
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
             if "registers" in line or ("spill" in line and "0 bytes spill stores" not in line):

@@ -20,14 +20,33 @@
 // samples outside the image contribute nothing (IPOL's rule, which the
 // TPU reproduced with zero padding). Invalid lanes write zeros.
 //
-// Layout: one block per lane; threads stride over the sample box, which
-// is cut to the sigma-dependent window (never wider than the static
-// radius). Each thread adds into its own histogram column in shared
-// memory ([bin][thread], so thread t always hits bank t % 32 and no atomics
-// are needed); the columns are summed in a fixed order at the end, so a
-// run repeats bit for bit. A sample's descriptor weight is non-zero in at
-// most 2 x 2 x 2 bins. atan2f is used directly (the TPU needed a
+// Orientation layout: one block per lane; threads stride over the sample
+// box, which is cut to the sigma-dependent window (never wider than the
+// static radius). Each thread adds into its own histogram column in
+// shared memory ([bin][thread], so thread t always hits bank t % 32 and no
+// atomics are needed); the columns are summed in a fixed order at the end,
+// so a run repeats bit for bit. atan2f is used directly (the TPU needed a
 // polynomial).
+//
+// Descriptor layout: a lane is split over kParts warps (8 for the (4, 8)
+// shape, the only one any preset uses; one block a lane), each warp taking
+// every kParts-th round of 32 window candidates. A warp of an invalid lane
+// writes zeros and leaves. Per round each thread rotates its candidate
+// (xr, yr: divided by sigma as before) and tests the box; a ballot appends
+// the accepted ones, in window order, to the warp's queue. Once 32 wait,
+// each thread takes one, reads gi/gj, computes magnitude, Gaussian weight,
+// phi and the tent weights with the same expressions as before, and stages
+// the sample's 16 spatial products (contrib * wr) * wc and 8 orientation
+// weights in shared memory; the warp then contracts the chunk, a [16 x 32]
+// by [32 x 8] product in fp32 FMA (the counterpart of the TPU kernel's MXU
+// entry reduction): thread t owns bins (2m, 2m + 1) x (2q, 2q + 1),
+// m = t / 4, q = t % 4, in registers, and adds the chunk into them in
+// sample order. The warps' partial histograms are summed in warp order.
+// No atomics, one fixed order: a run repeats bit for bit. Every other
+// shape the launcher admits (n_hist <= 8, n_ori <= 16) takes a generic
+// instance: one warp per lane, the bins in the warp's shared memory.
+// cos / sin of theta come from sincospif (see descriptor_warp). The fused
+// form keeps descriptor_accumulate's per-thread columns.
 //
 // Fused form (replaces _orient_desc_kernel, through
 // orient_desc_lanes_pallas): one block per KEYPOINT builds the orientation
@@ -48,30 +67,34 @@
 // kept a 128-row full-width band of the stacked field in VMEM (megabytes);
 // a block here has 227 KB, so the resident region is a 2-D tile of one
 // (frame, scale) plane: all lanes whose clamped rounded centre falls in one
-// tile x tile square form a run (the wrapper sorts lanes by tile, stably,
-// in PyTorch), one block takes one run, copies the bounding box of its
-// lanes' sample windows (never more than (tile + 2 radius)^2 pixels of gi
-// and gj) into shared memory with coalesced loads, and then accumulates
-// lane after lane with the staged kernels' device functions, thread order
-// and block size, reading gi/gj from the copy. Each lane's row goes
-// straight to out[lane], so the result equals the staged kernel's bit for
-// bit and no un-permute pass exists. Shared memory: orientation tile 32,
-// radius 18: 68^2 x 2 x 4 B = 37 KB + 36 x 128 x 4 B of columns = 55 KB
-// (four blocks an SM); descriptor tile 16, radius 40: 96^2 x 2 x 4 B =
-// 74 KB + 128 x 64 x 4 B = 106 KB (two blocks an SM; a 48-pixel tile would
-// need 160 KB and leave an SM one block of two warps). Every octave takes
+// tile x tile square form a run. A block copies the bounding box of its
+// run's sample windows (never more than (tile + 2 radius)^2 pixels of gi
+// and gj) into shared memory and computes the run's lanes reading gi/gj
+// from the copy, each lane's row straight to out[lane] (no un-permute
+// pass). Orientation: the wrapper sorts lanes by tile, stably, in
+// PyTorch; one block per run start, the staged kernel's device functions,
+// thread order and block size, tile 32, radius 18: 68^2 x 8 B = 37 KB +
+// 18 KB of columns (four blocks an SM). Descriptor: the lanes are laid out
+// by tile_runs, a counting sort in three small kernels (no host
+// synchronisation); a persistent grid of blocks takes the runs from a
+// counter, the copy goes by cp.async, and the block's 8 warps compute one
+// lane at a time with descriptor_warp, so the result equals the staged
+// kernel's bit for bit. Tile 16, radius 40: 96^2 x 8 B = 74 KB + 35 KB of
+// staging = 109 KB, two blocks (16 warps) an SM; a measured sweep over
+// sides 8-32 (chip_smoke.py) finds 16 fastest: runs hold 1.5-1.6 lanes at
+// every side there, and above 16 an SM keeps one block. Every octave takes
 // this form: the TPU's rows >= band-rows gate was a buffer-size condition.
-// What bounds it: as the staged kernels, plus the copy, which pays only
-// where several lanes share a tile (a keypoint's orientations always do).
 //
 // Bound on an H100, by chip_smoke.py's count at the main path's octave-0
 // lanes (each distinct gradient pixel read once; about 90 fp32 operations
 // per orientation sample and 284 per descriptor sample, a division counted
 // 8, sqrt 6, exp 6, atan2 35): the descriptor, fused and resident
 // descriptor kernels by operations, the two orientation kernels by bytes,
-// the two sides never more than 2x apart. Every kernel runs 14-110x above
-// that: what they wait for is latency (one block of 64-128 threads a lane,
-// windows that hit L1/L2, the special-function unit), not a roofline.
+// the two sides never more than 2x apart. The staged descriptor kernel
+// runs 8x above that, its resident form 13x (with its layout), the others
+// 14-70x: what they wait for is latency (windows that hit L1/L2, the
+// special-function unit's divisions, exp and atan2, and, for the resident
+// forms, two regions an SM), not a roofline.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -276,34 +299,312 @@ __device__ __forceinline__ void descriptor_accumulate(
   }
 }
 
-__global__ void descriptor_kernel(const float* __restrict__ gi,
-                                  const float* __restrict__ gj, int B, int S,
-                                  int H, int W, const uint8_t* __restrict__ valid,
-                                  const int* __restrict__ frame,
-                                  const int* __restrict__ scale,
-                                  const float* __restrict__ x,
-                                  const float* __restrict__ y,
-                                  const float* __restrict__ sigma,
-                                  const float* __restrict__ theta, int radius,
-                                  int n_hist, int n_ori, float lam,
-                                  float* __restrict__ out) {
-  extern __shared__ float hist[];  // [n_hist * n_hist * n_ori][NT]
-  const int l = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int n_out = n_hist * n_hist * n_ori;
-  float* out_l = out + (long long)l * n_out;
-  if (!valid[l]) {
-    for (int k = tid; k < n_out; k += nt) out_l[k] = 0.f;
+// --- Descriptor: Hist::kParts warps per lane ---------------------------------
+
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// The per-lane constants of IPOL Alg. 12, with descriptor_accumulate's
+// expressions.
+struct DescConst {
+  float half, den, cell, c_off, o_step, o_scale;
+};
+
+__device__ __forceinline__ DescConst desc_const(int n_hist, int n_ori,
+                                                float lam) {
+  DescConst g;
+  g.half = (float)((double)lam * (n_hist + 1) / n_hist);
+  g.den = (float)(2.0 * (double)lam * (double)lam);
+  g.cell = (float)(2.0 * (double)lam / n_hist);
+  g.c_off = (float)((n_hist + 1) / 2.0);
+  g.o_step = (float)(2.0 * kPi / n_ori);
+  g.o_scale = (float)(n_ori / (2.0 * kPi));
+  return g;
+}
+
+// Tent weight of spatial cell c for a rotated coordinate z.
+__device__ __forceinline__ float spatial_tent(float z, int c,
+                                              const DescConst& g) {
+  const float center = ((float)(c + 1) - g.c_off) * g.cell;
+  return fmaxf(0.f, 1.f - fabsf(z - center) / g.cell);
+}
+
+// Tent weight of orientation bin k for a relative angle phi in [0, 2 pi).
+__device__ __forceinline__ float orient_tent(float phi, int k,
+                                             const DescConst& g) {
+  float d = fabsf(phi - (float)k * g.o_step);
+  d = fminf(d, kTwoPi - d);
+  return fmaxf(0.f, 1.f - d * g.o_scale);
+}
+
+constexpr int kChunk = 32;  // staged samples per contraction
+
+// Histogram of the (4, 8) shape in registers. Each lane is split over
+// kParts warps. Thread t of a warp owns bins (rc, k) in {2m, 2m + 1} x
+// {2q, 2q + 1}, m = t / 4, q = t % 4; a staged sample is 8 pairs of
+// spatial products and 4 pairs of orientation weights, [pair][sample]
+// with a padded row so that the contraction's loads hit distinct banks.
+struct Hist48 {
+  static constexpr int kParts = 8, kMaxOut = 128;
+  struct Scratch {
+    float2 s[8][kChunk + 1];
+    float2 o[4][kChunk + 1];
+  };
+  float acc[4];
+  __device__ Hist48(int, int) {}
+  __device__ static constexpr int n_hist() { return 4; }
+  __device__ static constexpr int n_ori() { return 8; }
+  __device__ static constexpr int n_out() { return 128; }
+  __device__ void zero(Scratch&, int) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i] = 0.f;
+  }
+  __device__ void stage(Scratch& sc, int slot, float xr, float yr,
+                        float contrib, float phi, const DescConst& g) const {
+    float wr[4], wc[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      wr[c] = spatial_tent(xr, c, g);
+      wc[c] = spatial_tent(yr, c, g);
+    }
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const float cr = contrib * wr[m >> 1];
+      const int c = (m & 1) * 2;
+      sc.s[m][slot] = make_float2(cr * wc[c], cr * wc[c + 1]);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      sc.o[q][slot] = make_float2(orient_tent(phi, 2 * q, g),
+                                  orient_tent(phi, 2 * q + 1, g));
+  }
+  __device__ void product(const Scratch& sc, int n, int lane) {
+    const int m = lane >> 2, q = lane & 3;
+    for (int i = 0; i < n; ++i) {
+      const float2 a = sc.s[m][i], b = sc.o[q][i];
+      acc[0] = fmaf(a.x, b.x, acc[0]);
+      acc[1] = fmaf(a.x, b.y, acc[1]);
+      acc[2] = fmaf(a.y, b.x, acc[2]);
+      acc[3] = fmaf(a.y, b.y, acc[3]);
+    }
+  }
+  __device__ void store(const Scratch&, float* out_l, int lane) const {
+    const int m = lane >> 2, q = lane & 3;
+    float2* o = reinterpret_cast<float2*>(out_l + 16 * m + 2 * q);
+    o[0] = make_float2(acc[0], acc[1]);
+    o[4] = make_float2(acc[2], acc[3]);
+  }
+};
+
+// Any shape with n_hist <= kMaxHist and n_ori <= kMaxOri: one warp per
+// lane, the staged weights and the bins in the warp's shared memory;
+// thread t owns the bins t, t + 32, ... and adds each over the chunk in
+// sample order.
+struct HistAny {
+  static constexpr int kParts = 1, kMaxOut = kMaxHist * kMaxHist * kMaxOri;
+  struct Scratch {
+    float s[kMaxHist * kMaxHist][kChunk + 1];
+    float o[kMaxOri][kChunk + 1];
+    float acc[kMaxHist * kMaxHist * kMaxOri];
+  };
+  int nh, no;
+  __device__ HistAny(int n_hist, int n_ori) : nh(n_hist), no(n_ori) {}
+  __device__ int n_hist() const { return nh; }
+  __device__ int n_ori() const { return no; }
+  __device__ int n_out() const { return nh * nh * no; }
+  __device__ void zero(Scratch& sc, int lane) const {
+    for (int b = lane; b < n_out(); b += 32) sc.acc[b] = 0.f;
+  }
+  __device__ void stage(Scratch& sc, int slot, float xr, float yr,
+                        float contrib, float phi, const DescConst& g) const {
+    for (int r = 0; r < nh; ++r) {
+      const float cr = contrib * spatial_tent(xr, r, g);
+      for (int c = 0; c < nh; ++c)
+        sc.s[r * nh + c][slot] = cr * spatial_tent(yr, c, g);
+    }
+    for (int k = 0; k < no; ++k) sc.o[k][slot] = orient_tent(phi, k, g);
+  }
+  __device__ void product(Scratch& sc, int n, int lane) const {
+    for (int b = lane; b < n_out(); b += 32) {
+      const int rc = b / no, k = b - rc * no;
+      float a = sc.acc[b];
+      for (int i = 0; i < n; ++i) a = fmaf(sc.s[rc][i], sc.o[k][i], a);
+      sc.acc[b] = a;
+    }
+  }
+  __device__ void store(const Scratch& sc, float* out_l, int lane) const {
+    for (int b = lane; b < n_out(); b += 32) out_l[b] = sc.acc[b];
+  }
+};
+
+// One warp's shared memory: the queue of accepted candidates (rotated
+// coordinates and field offset, in sample order) and the staged chunk.
+template <class Hist>
+struct WarpScratch {
+  typename Hist::Scratch h;
+  float qx[2 * kChunk], qy[2 * kChunk];
+  int qo[2 * kChunk];
+};
+
+// Part `part` of Hist::kParts of the raw descriptor of lane `ln` at
+// reference orientation `th`, accumulated into `hist` by the calling warp
+// (all 32 threads, converged): the rounds part, part + kParts, ... of 32
+// window candidates. The accepted samples of those rounds reach the contraction
+// in window order and every bin adds them in that order, so staged and
+// resident kernels, which differ only in where `fd` points, agree bit for
+// bit.
+template <class Hist>
+__device__ __forceinline__ void descriptor_warp(
+    WarpScratch<Hist>& ws, Hist& hist, const Lane& ln, float th,
+    const Field& fd, int H, int W, int radius, float lam, int part) {
+  const int lane = threadIdx.x & 31;
+  const DescConst g = desc_const(hist.n_hist(), hist.n_ori(), lam);
+  // cos and sin of th through sincospif: the same values to an ulp as
+  // cosf / sinf, without their large-argument reduction, whose local
+  // array would give the kernel a stack frame.
+  float st, ct;
+  sincospif(th * (float)(1.0 / kPi), &st, &ct);
+  const Window wd = descriptor_window(ln, H, W, radius, hist.n_hist(), lam);
+  const int u0 = wd.u0, v0 = wd.v0;
+  const int nv = wd.v1 - v0 + 1;
+  const int n = (wd.u1 - u0 + 1) * nv;
+  const unsigned below = (1u << lane) - 1u;
+  hist.zero(ws.h, lane);
+
+  // Weights of the first m queued samples, then their contraction.
+  auto flush = [&](int m) {
+    __syncwarp();
+    if (lane < m) {
+      const float xr = ws.qx[lane], yr = ws.qy[lane];
+      const int o = ws.qo[lane];
+      const float a = fd.gi[o], b = fd.gj[o];
+      const float mag = sqrtf(a * a + b * b);
+      const float contrib = expf(-(xr * xr + yr * yr) / g.den) * mag;
+      const float phi = mod_2pi(atan2f(b, a) - th);
+      hist.stage(ws.h, lane, xr, yr, contrib, phi, g);
+    }
+    __syncwarp();
+    hist.product(ws.h, m, lane);
+    __syncwarp();
+  };
+
+  int nq = 0;
+  for (int p0 = part * 32; p0 < n; p0 += Hist::kParts * 32) {
+    const int p = p0 + lane;
+    bool in = false;
+    float xr = 0.f, yr = 0.f;
+    int o = 0;
+    if (p < n) {
+      const int u = u0 + p / nv, v = v0 + p % nv;
+      const float dm = (float)u - ln.x;
+      const float dn = (float)v - ln.y;
+      xr = (ct * dm + st * dn) / ln.sg;
+      yr = (-st * dm + ct * dn) / ln.sg;
+      in = fabsf(xr) < g.half && fabsf(yr) < g.half;
+      o = (u - fd.r0) * fd.pitch + (v - fd.c0);
+    }
+    const unsigned ball = __ballot_sync(kFullWarp, in);
+    if (in) {
+      const int slot = nq + __popc(ball & below);
+      ws.qx[slot] = xr;
+      ws.qy[slot] = yr;
+      ws.qo[slot] = o;
+    }
+    nq += __popc(ball);
+    if (nq >= kChunk) {
+      flush(kChunk);
+      const int rest = nq - kChunk;
+      if (lane < rest) {
+        ws.qx[lane] = ws.qx[kChunk + lane];
+        ws.qy[lane] = ws.qy[kChunk + lane];
+        ws.qo[lane] = ws.qo[kChunk + lane];
+      }
+      nq = rest;
+      __syncwarp();
+    }
+  }
+  if (nq > 0) flush(nq);
+}
+
+// Barrier of the Hist::kParts warps of lane group g (named barrier 1 + g).
+template <class Hist>
+__device__ __forceinline__ void group_sync(int g) {
+  if (Hist::kParts == 1)
+    __syncwarp();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + g), "r"(Hist::kParts * 32)
+                 : "memory");
+}
+
+// One lane by the Hist::kParts warps of group g (descriptor_warp each);
+// their partial histograms are summed in part order into out_l. `red`
+// holds the group's kParts * n_out floats.
+template <class Hist>
+__device__ __forceinline__ void descriptor_lane(
+    WarpScratch<Hist>& ws, float* red, Hist& hist, int g, int part,
+    const Lane& ln, float th, const Field& fd, int H, int W, int radius,
+    float lam, float* out_l) {
+  const int lane = threadIdx.x & 31;
+  descriptor_warp(ws, hist, ln, th, fd, H, W, radius, lam, part);
+  if (Hist::kParts == 1) {
+    hist.store(ws.h, out_l, lane);
     return;
   }
-  for (int k = 0; k < n_out; ++k) hist[k * nt + tid] = 0.f;
-  const Lane ln = lane_of(l, B, S, H, W, frame, scale, x, y, sigma);
-  descriptor_accumulate(hist, tid, nt, ln, theta[l],
-                        plane_field(ln, gi, gj, S, H, W), H, W, radius, n_hist,
-                        n_ori, lam);
-  __syncthreads();
-  for (int k = tid; k < n_out; k += nt) out_l[k] = column_sum(hist, k, nt);
+  const int n_out = hist.n_out();
+  hist.store(ws.h, red + part * n_out, lane);
+  group_sync<Hist>(g);
+  for (int b = part * 32 + lane; b < n_out; b += Hist::kParts * 32) {
+    float v = red[b];
+    for (int k = 1; k < Hist::kParts; ++k) v += red[k * n_out + b];
+    out_l[b] = v;
+  }
+  group_sync<Hist>(g);  // red is read before the group's next lane
+}
+
+// Warps of a staged block: one lane of Hist48, four lanes of HistAny.
+template <class Hist>
+__host__ __device__ constexpr int staged_warps() {
+  return Hist::kParts > 4 ? Hist::kParts : 4;
+}
+
+// Shared memory of `warps` warps (a staged block, or a resident block
+// before its region): the warps' scratch, then the groups' reduction rows.
+template <class Hist>
+__host__ __device__ constexpr int lane_smem(int warps) {
+  return warps * (int)sizeof(WarpScratch<Hist>) +
+         (Hist::kParts > 1 ? warps * Hist::kMaxOut * (int)sizeof(float) : 0);
+}
+
+template <class Hist>
+__global__ void __launch_bounds__(staged_warps<Hist>() * 32)
+    descriptor_kernel(const float* __restrict__ gi,
+                      const float* __restrict__ gj, int B, int S, int H, int W,
+                      int L, const uint8_t* __restrict__ valid,
+                      const int* __restrict__ frame,
+                      const int* __restrict__ scale,
+                      const float* __restrict__ x, const float* __restrict__ y,
+                      const float* __restrict__ sigma,
+                      const float* __restrict__ theta, int radius, int n_hist,
+                      int n_ori, float lam, float* __restrict__ out) {
+  constexpr int kWarps = staged_warps<Hist>();
+  extern __shared__ __align__(16) unsigned char warp_smem[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = w / Hist::kParts, part = w % Hist::kParts;
+  const long long l = (long long)blockIdx.x * (kWarps / Hist::kParts) + g;
+  if (l >= L) return;
+  Hist hist(n_hist, n_ori);
+  const int n_out = hist.n_out();
+  float* out_l = out + l * n_out;
+  if (!valid[l]) {
+    for (int k = part * 32 + lane; k < n_out; k += Hist::kParts * 32)
+      out_l[k] = 0.f;
+    return;
+  }
+  WarpScratch<Hist>* wsa = reinterpret_cast<WarpScratch<Hist>*>(warp_smem);
+  float* red =
+      reinterpret_cast<float*>(wsa + kWarps) + g * Hist::kParts * n_out;
+  const Lane ln = lane_of((int)l, B, S, H, W, frame, scale, x, y, sigma);
+  descriptor_lane(wsa[w], red, hist, g, part, ln, theta[l],
+                  plane_field(ln, gi, gj, S, H, W), H, W, radius, lam, out_l);
 }
 
 constexpr int kMaxBins = 64;
@@ -400,24 +701,21 @@ __global__ void orient_desc_kernel(
   }
 }
 
-// Resident-tile form of the two staged kernels (kDesc: descriptor, else
-// orientation). Block p takes the run of sorted lanes that starts at
-// position p (first[p]) and ends before run_end[p]; src[q] is the lane at
-// sorted position q. Every lane of a run has the same (frame, scale) and
-// its centre in the same tile x tile square. pa, pb: (n_bins, unused) or
-// (n_hist, n_ori). Rows of lanes that belong to no run (invalid lanes)
-// are not written: the wrapper hands in zeros.
-template <bool kDesc>
-__global__ void resident_kernel(
+// Resident-tile form of the staged orientation kernel. Block p takes the
+// run of sorted lanes that starts at position p (first[p]) and ends before
+// run_end[p]; src[q] is the lane at sorted position q. Every lane of a run
+// has the same (frame, scale) and its centre in the same tile x tile
+// square. Rows of lanes that belong to no run (invalid lanes) are not
+// written: the wrapper hands in zeros.
+__global__ void resident_orientation_kernel(
     const float* __restrict__ gi, const float* __restrict__ gj, int B, int S,
     int H, int W, const uint8_t* __restrict__ first,
     const int* __restrict__ run_end, const int* __restrict__ src,
     const int* __restrict__ frame, const int* __restrict__ scale,
     const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ sigma, const float* __restrict__ theta,
-    int radius, int tile, int pa, int pb, float lam, int n_out,
-    float* __restrict__ out) {
-  extern __shared__ float smem[];  // [n_out][NT] columns, then gi, gj copies
+    const float* __restrict__ sigma, int radius, int tile, int n_bins,
+    float lam, float* __restrict__ out) {
+  extern __shared__ float smem[];  // [n_bins][NT] columns, then gi, gj copies
   __shared__ int box[4];
   const int p = blockIdx.x;
   if (!first[p]) return;
@@ -426,7 +724,7 @@ __global__ void resident_kernel(
   const int end = run_end[p];
   const int side = tile + 2 * radius;
   float* hist = smem;
-  float* reg_i = smem + n_out * nt;
+  float* reg_i = smem + n_bins * nt;
   float* reg_j = reg_i + side * side;
 
   // Bounding box of the run's sample windows.
@@ -439,8 +737,7 @@ __global__ void resident_kernel(
   __syncthreads();
   for (int q = p + tid; q < end; q += nt) {
     const Lane ln = lane_of(src[q], B, S, H, W, frame, scale, x, y, sigma);
-    const Window wd = kDesc ? descriptor_window(ln, H, W, radius, pa, lam)
-                            : orientation_window(ln, H, W, radius, lam);
+    const Window wd = orientation_window(ln, H, W, radius, lam);
     atomicMin(&box[0], wd.u0);
     atomicMax(&box[1], wd.u1);
     atomicMin(&box[2], wd.v0);
@@ -453,8 +750,8 @@ __global__ void resident_kernel(
     // The run was not laid out with this tile: refuse loudly rather than
     // write past the copy.
     for (int q = p; q < end; ++q)
-      for (int k = tid; k < n_out; k += nt)
-        out[(long long)src[q] * n_out + k] = nanf("");
+      for (int k = tid; k < n_bins; k += nt)
+        out[(long long)src[q] * n_bins + k] = nanf("");
     return;
   }
   const Lane l0 = lane_of(src[p], B, S, H, W, frame, scale, x, y, sigma);
@@ -470,43 +767,279 @@ __global__ void resident_kernel(
   for (int q = p; q < end; ++q) {
     const int l = src[q];
     const Lane ln = lane_of(l, B, S, H, W, frame, scale, x, y, sigma);
-    for (int k = 0; k < n_out; ++k) hist[k * nt + tid] = 0.f;
-    if (kDesc)
-      descriptor_accumulate(hist, tid, nt, ln, theta[l], fd, H, W, radius, pa,
-                            pb, lam);
-    else
-      orientation_accumulate(hist, tid, nt, ln, fd, H, W, radius, pa, lam);
+    for (int k = 0; k < n_bins; ++k) hist[k * nt + tid] = 0.f;
+    orientation_accumulate(hist, tid, nt, ln, fd, H, W, radius, n_bins, lam);
     __syncthreads();
-    float* out_l = out + (long long)l * n_out;
-    for (int k = tid; k < n_out; k += nt) out_l[k] = column_sum(hist, k, nt);
+    float* out_l = out + (long long)l * n_bins;
+    for (int k = tid; k < n_bins; k += nt) out_l[k] = column_sum(hist, k, nt);
     __syncthreads();  // the sums are read before the next lane zeroes them
+  }
+}
+
+// --- Tile layout of the resident descriptor form: a counting sort ----------
+//
+// key(l) = (frame, scale, row tile, column tile) of lane l's clamped rounded
+// centre, n_tiles for an invalid lane. count[key] and each lane's rank in
+// its key come from one atomic pass, start[] from one exclusive scan, and
+// the scatter puts lane l at start[key] + rank: runs sit in key order as
+// after tile_layout's stable sort, and the order inside a run (free: each
+// lane's row is computed alone) follows the atomics.
+
+__device__ __forceinline__ int tile_key(int l, int B, int S, int H, int W,
+                                        const uint8_t* valid, const int* frame,
+                                        const int* scale, const float* x,
+                                        const float* y, int tile, int tr,
+                                        int tc, int n_tiles) {
+  if (!valid[l]) return n_tiles;
+  const int f = min(max(frame[l], 0), B - 1);
+  const int s = min(max(scale[l], 1), S) - 1;
+  const int ci = min(max((int)rintf(x[l]), 0), H - 1);
+  const int cj = min(max((int)rintf(y[l]), 0), W - 1);
+  return ((f * S + s) * tr + ci / tile) * tc + cj / tile;
+}
+
+__global__ void layout_count_kernel(int B, int S, int H, int W, int L,
+                                    const uint8_t* __restrict__ valid,
+                                    const int* __restrict__ frame,
+                                    const int* __restrict__ scale,
+                                    const float* __restrict__ x,
+                                    const float* __restrict__ y, int tile,
+                                    int tr, int tc, int n_tiles,
+                                    int* __restrict__ count,
+                                    int* __restrict__ rank) {
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= L) return;
+  const int key =
+      tile_key(l, B, S, H, W, valid, frame, scale, x, y, tile, tr, tc, n_tiles);
+  rank[l] = atomicAdd(&count[key], 1);
+}
+
+constexpr int kScanThreads = 1024;
+
+// Exclusive scan of count[0..n) into start[], in one block: each warp
+// sums a contiguous segment with coalesced loads, the block scans the 32
+// segment sums, and each warp scans its segment 32 entries at a time.
+__global__ void __launch_bounds__(kScanThreads)
+    layout_scan_kernel(const int* __restrict__ count, int n,
+                       int* __restrict__ start) {
+  __shared__ int seg_start[32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int seg = (n + 31) / 32;
+  const int b0 = min(w * seg, n), b1 = min(b0 + seg, n);
+  int sum = 0;
+  for (int i = b0 + lane; i < b1; i += 32) sum += count[i];
+  for (int off = 16; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(kFullWarp, sum, off);
+  if (lane == 0) seg_start[w] = sum;
+  __syncthreads();
+  if (w == 0) {
+    const int own = seg_start[lane];
+    int v = own;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(kFullWarp, v, off);
+      if (lane >= off) v += t;
+    }
+    seg_start[lane] = v - own;
+  }
+  __syncthreads();
+  int carry = seg_start[w];
+  for (int i0 = b0; i0 < b1; i0 += 32) {
+    const int i = i0 + lane;
+    const int c = i < b1 ? count[i] : 0;
+    int v = c;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(kFullWarp, v, off);
+      if (lane >= off) v += t;
+    }
+    if (i < b1) start[i] = carry + v - c;
+    carry += __shfl_sync(kFullWarp, v, 31);
+  }
+}
+
+// runs[0] counts the run heads written to heads[] (in no fixed order).
+__global__ void layout_scatter_kernel(
+    int B, int S, int H, int W, int L, const uint8_t* __restrict__ valid,
+    const int* __restrict__ frame, const int* __restrict__ scale,
+    const float* __restrict__ x, const float* __restrict__ y, int tile, int tr,
+    int tc, int n_tiles, const int* __restrict__ count,
+    const int* __restrict__ start, const int* __restrict__ rank,
+    int* __restrict__ src, uint8_t* __restrict__ first,
+    int* __restrict__ run_end, int* __restrict__ heads,
+    int* __restrict__ runs) {
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= L) return;
+  const int key =
+      tile_key(l, B, S, H, W, valid, frame, scale, x, y, tile, tr, tc, n_tiles);
+  const int pos = start[key] + rank[l];
+  const bool head = rank[l] == 0 && key < n_tiles;
+  src[pos] = l;
+  run_end[pos] = start[key] + count[key];
+  first[pos] = head;
+  if (head) heads[atomicAdd(&runs[0], 1)] = pos;
+}
+
+// One 4-byte copy from device to shared memory that does not hold the
+// thread (cp.async): a block issues its whole region before it waits.
+__device__ __forceinline__ void copy_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Resident-tile form of the staged descriptor kernel. A persistent grid:
+// each block takes the next run (runs[1] counts the runs handed out,
+// heads[] holds their first sorted positions), copies the bounding box of
+// its lanes' windows into shared memory, and its warps take the run's
+// lanes in turn, each with descriptor_warp reading gi/gj from the copy.
+// Rows of lanes in no run are not written: the wrapper hands in zeros.
+template <class Hist>
+__global__ void resident_descriptor_kernel(
+    const float* __restrict__ gi, const float* __restrict__ gj, int B, int S,
+    int H, int W, const int* __restrict__ heads, int* __restrict__ runs,
+    const int* __restrict__ run_end, const int* __restrict__ src,
+    const int* __restrict__ frame, const int* __restrict__ scale,
+    const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ sigma, const float* __restrict__ theta,
+    int radius, int tile, int n_hist, int n_ori, float lam,
+    float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char warp_smem[];
+  __shared__ int box[4];
+  __shared__ int run_p;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int w = tid >> 5, nw = nt >> 5;
+  const int side = tile + 2 * radius;
+  Hist hist(n_hist, n_ori);
+  const int n_out = hist.n_out();
+  const int g = w / Hist::kParts, part = w % Hist::kParts;
+  const int groups = nw / Hist::kParts;
+  WarpScratch<Hist>* wsa = reinterpret_cast<WarpScratch<Hist>*>(warp_smem);
+  float* red = reinterpret_cast<float*>(wsa + nw) + g * Hist::kParts * n_out;
+  float* reg_i = reinterpret_cast<float*>(warp_smem + lane_smem<Hist>(nw));
+  float* reg_j = reg_i + side * side;
+  for (;;) {
+    if (tid == 0) {
+      const int r = atomicAdd(&runs[1], 1);
+      run_p = r < runs[0] ? heads[r] : -1;
+      box[0] = H;
+      box[1] = -1;
+      box[2] = W;
+      box[3] = -1;
+    }
+    __syncthreads();
+    const int p = run_p;
+    if (p < 0) return;
+    const int end = run_end[p];
+    for (int q = p + tid; q < end; q += nt) {
+      const Lane ln = lane_of(src[q], B, S, H, W, frame, scale, x, y, sigma);
+      const Window wd = descriptor_window(ln, H, W, radius, hist.n_hist(), lam);
+      atomicMin(&box[0], wd.u0);
+      atomicMax(&box[1], wd.u1);
+      atomicMin(&box[2], wd.v0);
+      atomicMax(&box[3], wd.v1);
+    }
+    __syncthreads();
+    const int r0 = box[0], c0 = box[2];
+    const int rows = box[1] - r0 + 1, pitch = box[3] - c0 + 1;
+    if (rows > side || pitch > side) {
+      // The run was not laid out with this tile: refuse loudly rather than
+      // write past the copy.
+      for (int q = p; q < end; ++q)
+        for (int k = tid; k < n_out; k += nt)
+          out[(long long)src[q] * n_out + k] = nanf("");
+    } else {
+      const Lane l0 = lane_of(src[p], B, S, H, W, frame, scale, x, y, sigma);
+      const Field plane = plane_field(l0, gi, gj, S, H, W);
+      for (int i = tid; i < rows * pitch; i += nt) {
+        const int o = (r0 + i / pitch) * W + (c0 + i % pitch);
+        copy_async4(reg_i + i, plane.gi + o);
+        copy_async4(reg_j + i, plane.gj + o);
+      }
+      copy_async_wait();
+      __syncthreads();
+      const Field fd{reg_i, reg_j, pitch, r0, c0};
+      for (int q = p + g; q < end; q += groups) {
+        const int l = src[q];
+        const Lane ln = lane_of(l, B, S, H, W, frame, scale, x, y, sigma);
+        descriptor_lane(wsa[w], red, hist, g, part, ln, theta[l], fd, H, W,
+                        radius, lam, out + (long long)l * n_out);
+      }
+    }
+    __syncthreads();  // the copy and run_p are done with before the next run
   }
 }
 
 constexpr int kMaxDynamicShared = 232448;  // 227 KB a block on sm_90
 
-template <bool kDesc>
-int launch_resident(const float* gi, const float* gj, int B, int S, int H,
-                    int W, int L, const uint8_t* first, const int* run_end,
-                    const int* src, const int* frame, const int* scale,
-                    const float* x, const float* y, const float* sigma,
-                    const float* theta, int radius, int tile, int pa, int pb,
-                    float lam, int n_out, int nt, float* out,
-                    cudaStream_t stream) {
-  if (tile < 1 || radius < 0) return (int)cudaErrorInvalidValue;
-  const long long side = (long long)tile + 2 * radius;
-  const long long bytes =
-      ((long long)n_out * nt + 2 * side * side) * (long long)sizeof(float);
-  if (bytes > kMaxDynamicShared) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      resident_kernel<kDesc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
+template <class Hist>
+int launch_descriptor(const float* gi, const float* gj, int B, int S, int H,
+                      int W, int L, const uint8_t* valid, const int* frame,
+                      const int* scale, const float* x, const float* y,
+                      const float* sigma, const float* theta, int radius,
+                      int n_hist, int n_ori, float lam, float* out,
+                      cudaStream_t stream) {
+  constexpr int kWarps = staged_warps<Hist>(), kLanes = kWarps / Hist::kParts;
+  const int bytes = lane_smem<Hist>(kWarps);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        descriptor_kernel<Hist>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
   if (L > 0)
-    resident_kernel<kDesc><<<L, nt, (size_t)bytes, stream>>>(
-        gi, gj, B, S, H, W, first, run_end, src, frame, scale, x, y, sigma,
-        theta, radius, tile, pa, pb, lam, n_out, out);
+    descriptor_kernel<Hist>
+        <<<(L + kLanes - 1) / kLanes, kWarps * 32, bytes,
+           stream>>>(gi, gj, B, S, H, W, L, valid, frame, scale, x, y, sigma,
+                     theta, radius, n_hist, n_ori, lam, out);
   return (int)cudaGetLastError();
+}
+
+// A resident block takes one lane of Hist48 at a time (its kParts warps)
+// and four lanes of HistAny, fewer where the region leaves no room.
+template <class Hist>
+int launch_resident_descriptor(const float* gi, const float* gj, int B, int S,
+                               int H, int W, const int* heads, int* runs,
+                               const int* run_end, const int* src,
+                               const int* frame, const int* scale,
+                               const float* x, const float* y,
+                               const float* sigma, const float* theta,
+                               int radius, int tile, int n_hist, int n_ori,
+                               float lam, float* out, cudaStream_t stream) {
+  if (tile < 1 || radius < 0) return (int)cudaErrorInvalidValue;
+  const long long region =
+      2 * ((long long)tile + 2 * radius) * ((long long)tile + 2 * radius) *
+      (long long)sizeof(float);
+  int warps = staged_warps<Hist>();
+  while (warps > Hist::kParts &&
+         region + lane_smem<Hist>(warps) > kMaxDynamicShared)
+    warps -= Hist::kParts;
+  const long long bytes = region + lane_smem<Hist>(warps);
+  if (bytes > kMaxDynamicShared) return (int)cudaErrorInvalidValue;
+  auto kernel = resident_descriptor_kernel<Hist>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, warps * 32, (size_t)bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<sms * per_sm, warps * 32, (size_t)bytes, stream>>>(
+      gi, gj, B, S, H, W, heads, runs, run_end, src, frame, scale, x, y, sigma,
+      theta, radius, tile, n_hist, n_ori, lam, out);
+  return (int)cudaGetLastError();
+}
+
+bool shape48(int n_hist, int n_ori) { return n_hist == 4 && n_ori == 8; }
+
+bool shape_ok(int n_hist, int n_ori) {
+  return n_hist >= 1 && n_ori >= 1 && n_hist <= kMaxHist && n_ori <= kMaxOri;
 }
 
 }  // namespace
@@ -534,14 +1067,15 @@ extern "C" int descriptor_hist(const float* gi, const float* gj, int B,
                                const float* theta, int radius, int n_hist,
                                int n_ori, float lam, float* out,
                                cudaStream_t stream) {
-  if (n_hist > kMaxHist || n_ori > kMaxOri) return (int)cudaErrorInvalidValue;
-  const int nt = 64;
-  if (L > 0)
-    descriptor_kernel<<<L, nt, n_hist * n_hist * n_ori * nt * sizeof(float),
-                        stream>>>(gi, gj, B, S, H, W, valid, frame, scale, x,
-                                  y, sigma, theta, radius, n_hist, n_ori, lam,
-                                  out);
-  return (int)cudaGetLastError();
+  if (shape48(n_hist, n_ori))
+    return launch_descriptor<Hist48>(gi, gj, B, S, H, W, L, valid, frame,
+                                     scale, x, y, sigma, theta, radius, n_hist,
+                                     n_ori, lam, out, stream);
+  if (shape_ok(n_hist, n_ori))
+    return launch_descriptor<HistAny>(gi, gj, B, S, H, W, L, valid, frame,
+                                      scale, x, y, sigma, theta, radius,
+                                      n_hist, n_ori, lam, out, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int orient_desc(const float* gi, const float* gj, int B, int S,
@@ -567,29 +1101,86 @@ extern "C" int orient_desc(const float* gi, const float* gj, int B, int S,
   return (int)cudaGetLastError();
 }
 
-// Resident-tile forms: `first`, `run_end`, `src` are the [L] tile layout
-// of the lanes (see resident_kernel); `out` must be zeroed by the caller.
-// Block sizes are the staged kernels', so the results equal theirs.
+// Resident orientation form: `first`, `run_end`, `src` are the [L] tile
+// layout of the lanes (see resident_orientation_kernel); `out` must be
+// zeroed by the caller. The block size is the staged kernel's, so the
+// result equals its.
 extern "C" int orientation_hist_banded(
     const float* gi, const float* gj, int B, int S, int H, int W, int L,
     const uint8_t* first, const int* run_end, const int* src, const int* frame,
     const int* scale, const float* x, const float* y, const float* sigma,
     int radius, int tile, int n_bins, float lam, float* out,
     cudaStream_t stream) {
-  return launch_resident<false>(gi, gj, B, S, H, W, L, first, run_end, src,
-                                frame, scale, x, y, sigma, nullptr, radius,
-                                tile, n_bins, 0, lam, n_bins, 128, out, stream);
+  const int nt = 128;
+  if (tile < 1 || radius < 0) return (int)cudaErrorInvalidValue;
+  const long long side = (long long)tile + 2 * radius;
+  const long long bytes =
+      ((long long)n_bins * nt + 2 * side * side) * (long long)sizeof(float);
+  if (bytes > kMaxDynamicShared) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      resident_orientation_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (L > 0)
+    resident_orientation_kernel<<<L, nt, (size_t)bytes, stream>>>(
+        gi, gj, B, S, H, W, first, run_end, src, frame, scale, x, y, sigma,
+        radius, tile, n_bins, lam, out);
+  return (int)cudaGetLastError();
 }
 
+// Tile layout of [L] lanes for the resident descriptor form. Scratch:
+// count and start hold n_tiles + 1 ints (n_tiles = B S ceil(H / tile)
+// ceil(W / tile)), rank L. Out: src, first, run_end as tile_layout's (the
+// order inside a run aside), heads[0 .. runs[0]) the runs' first
+// positions, runs[1] = 0.
+extern "C" int tile_runs(int B, int S, int H, int W, int L,
+                         const uint8_t* valid, const int* frame,
+                         const int* scale, const float* x, const float* y,
+                         int tile, int* count, int* start, int* rank, int* src,
+                         uint8_t* first, int* run_end, int* heads, int* runs,
+                         cudaStream_t stream) {
+  if (tile < 1) return (int)cudaErrorInvalidValue;
+  const int tr = (H + tile - 1) / tile, tc = (W + tile - 1) / tile;
+  const long long nk = (long long)B * S * tr * tc;
+  if (nk >= (1LL << 30)) return (int)cudaErrorInvalidValue;
+  const int n_tiles = (int)nk;
+  cudaError_t err =
+      cudaMemsetAsync(count, 0, (size_t)(n_tiles + 1) * sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(runs, 0, 2 * sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  if (L > 0) {
+    const int nb = (L + 255) / 256;
+    layout_count_kernel<<<nb, 256, 0, stream>>>(B, S, H, W, L, valid, frame,
+                                                scale, x, y, tile, tr, tc,
+                                                n_tiles, count, rank);
+    layout_scan_kernel<<<1, kScanThreads, 0, stream>>>(count, n_tiles + 1,
+                                                      start);
+    layout_scatter_kernel<<<nb, 256, 0, stream>>>(
+        B, S, H, W, L, valid, frame, scale, x, y, tile, tr, tc, n_tiles, count,
+        start, rank, src, first, run_end, heads, runs);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Resident descriptor form over a tile_runs layout made with the same
+// tile; `out` must be zeroed by the caller.
 extern "C" int descriptor_hist_banded(
-    const float* gi, const float* gj, int B, int S, int H, int W, int L,
-    const uint8_t* first, const int* run_end, const int* src, const int* frame,
-    const int* scale, const float* x, const float* y, const float* sigma,
-    const float* theta, int radius, int tile, int n_hist, int n_ori, float lam,
-    float* out, cudaStream_t stream) {
-  if (n_hist > kMaxHist || n_ori > kMaxOri) return (int)cudaErrorInvalidValue;
-  return launch_resident<true>(gi, gj, B, S, H, W, L, first, run_end, src,
-                               frame, scale, x, y, sigma, theta, radius, tile,
-                               n_hist, n_ori, lam, n_hist * n_hist * n_ori, 64,
-                               out, stream);
+    const float* gi, const float* gj, int B, int S, int H, int W,
+    const int* heads, int* runs, const int* run_end, const int* src,
+    const int* frame, const int* scale, const float* x, const float* y,
+    const float* sigma, const float* theta, int radius, int tile, int n_hist,
+    int n_ori, float lam, float* out, cudaStream_t stream) {
+  // Hand the runs out from the first again.
+  const cudaError_t err = cudaMemsetAsync(runs + 1, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  if (shape48(n_hist, n_ori))
+    return launch_resident_descriptor<Hist48>(
+        gi, gj, B, S, H, W, heads, runs, run_end, src, frame, scale, x, y,
+        sigma, theta, radius, tile, n_hist, n_ori, lam, out, stream);
+  if (shape_ok(n_hist, n_ori))
+    return launch_resident_descriptor<HistAny>(
+        gi, gj, B, S, H, W, heads, runs, run_end, src, frame, scale, x, y,
+        sigma, theta, radius, tile, n_hist, n_ori, lam, out, stream);
+  return (int)cudaErrorInvalidValue;
 }

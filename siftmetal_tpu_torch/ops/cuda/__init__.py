@@ -78,9 +78,12 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # sigma, radius, tile, n_bins, lam, out, stream
         "orientation_hist_banded": [_P, _P, _I, _I, _I, _I, _I] + [_P] * 8
                                    + [_I, _I, _I, _F, _P, _P],
-        # gi, gj, B, S, H, W, L, first, run_end, src, frame, scale, x, y,
+        # B, S, H, W, L, valid, frame, scale, x, y, tile, count, start, rank,
+        # src, first, run_end, heads, runs, stream
+        "tile_runs": [_I, _I, _I, _I, _I] + [_P] * 5 + [_I] + [_P] * 9,
+        # gi, gj, B, S, H, W, heads, runs, run_end, src, frame, scale, x, y,
         # sigma, theta, radius, tile, n_hist, n_ori, lam, out, stream
-        "descriptor_hist_banded": [_P, _P, _I, _I, _I, _I, _I] + [_P] * 9
+        "descriptor_hist_banded": [_P, _P, _I, _I, _I, _I] + [_P] * 10
                                   + [_I, _I, _I, _I, _F, _P, _P],
     },
 }

@@ -19,23 +19,32 @@ into padded fields, radius buckets, multi-keypoint lane packing, the
 polynomial atan2 and the MXU entry reduction. The gradient fields here are
 unpadded [B, n_scales, H, W]; the kernels bound-check instead.
 
+The staged descriptor kernel splits each lane over 8 warps (one block a
+lane): each warp takes every 8th round of 32 window candidates, queues the
+accepted ones by ballot, weighs 32 at a time and contracts them into a
+register histogram; the 8 partial histograms are summed in warp order, so
+a run repeats bit for bit (csrc/patches.cu). Shapes other than (4, 8)
+take a generic instance, one warp a lane.
+
 ``config.use_band_patches`` sends both staged stages through the
 resident-tile route (``_lanes_banded_call`` :1053 on the TPU, where a
 128-row full-width band of the stacked fields stayed in VMEM). On this
-card the resident region is a 2-D tile of one (frame, scale) plane:
-:func:`tile_layout` keys every lane by the tile of its clamped rounded
-centre, sorts the lanes by key with one stable sort and marks the runs;
-one block per run copies the bounding box of the run's sample windows
-into shared memory once and accumulates lane after lane with the staged
-kernels' arithmetic, writing each row straight to its lane (no un-permute
-pass, bit-identical to the staged kernels). Dropped TPU means: the
-sort-free counting sort with one-hot gathers, the padding of each band to
-groups of 8 lanes, the per-call lane chunks of the scalar prefetch, the
-radius buckets, and the ``rows >= band rows`` gate (a buffer-size
-condition: every octave takes the route here). On a CPU tensor the route
-runs the layout for real and the plain histograms on the sorted lanes,
-then un-permutes. The fused form has no resident variant (none in the JAX
-package either).
+card the resident region is a 2-D tile of one (frame, scale) plane: every
+lane is keyed by the tile of its clamped rounded centre, and the lanes of
+one tile form a run whose windows' bounding box one block copies into
+shared memory; each lane's row goes straight to its lane (no un-permute
+pass) and equals the staged kernel's bit for bit. The orientation form
+orders the lanes with :func:`tile_layout` (one stable sort in PyTorch);
+the descriptor form with :func:`tile_runs` (a counting sort in three
+small CUDA kernels, the order inside a run free) and a persistent grid
+that takes the runs from a counter. Dropped TPU means: the sort-free
+counting sort with one-hot gathers, the padding of each band to groups of
+8 lanes, the per-call lane chunks of the scalar prefetch, the radius
+buckets, and the ``rows >= band rows`` gate (a buffer-size condition:
+every octave takes the route here). On a CPU tensor the route runs
+:func:`tile_layout` for real and the plain histograms on the sorted
+lanes, then un-permutes. The fused form has no resident variant (none in
+the JAX package either).
 
 Bound on an H100: operations for the descriptor forms (per-sample
 exp/atan2/sqrt and tent weights), bytes for the orientation forms; see
@@ -99,9 +108,10 @@ def _kernel_args(fields: PatchFields, name, valid, frame, scale, *floats):
     return [valid.to(torch.uint8).contiguous()] + ints + fl
 
 
-# Tile sides of the resident route (centres per side). With the parity
-# radii (18, 40) a block holds (tile + 2 radius)^2 pixels of gi and gj plus
-# its histogram columns in 55 KB / 106 KB of shared memory (csrc/patches.cu).
+# Tile sides of the resident route (centres per side). A block holds
+# (tile + 2 radius)^2 pixels of gi and gj, plus the orientation form's
+# histogram columns (55 KB at radius 18) or the descriptor form's staging
+# (109 KB at radius 40: two blocks an SM; csrc/patches.cu).
 ORI_TILE = 32
 DESC_TILE = 16
 
@@ -138,29 +148,112 @@ def tile_layout(shape, valid, frame, scale, x_oct, y_oct, tile: int) -> TileLayo
     return TileLayout(src, first, torch.searchsorted(skey, skey, right=True))
 
 
-def _resident_lanes(fields, name, tile, radius, valid, frame, scale, floats,
-                    n_out, plain, shape_args):
-    """The resident-tile route of either stage: ``plain(valid, frame,
-    scale, *floats)`` on the sorted lanes for CPU fields, the
-    ``name`` kernel for CUDA fields. ``shape_args``: the kernel's
-    arguments between ``tile`` and ``out``."""
-    lay = tile_layout(fields.gi.shape, valid, frame, scale, floats[0], floats[1], tile)
-    if not use_kernel(fields.gi, name):
-        src = lay.src
-        rows = plain(valid[src], frame[src], scale[src], *(a[src] for a in floats))
-        out = torch.empty_like(rows)
-        out[src] = rows
-        return out
+class TileRuns(NamedTuple):
+    """The resident descriptor form's layout: ``src``, ``first`` and
+    ``run_end`` as :func:`tile_layout` gives them, and the first sorted
+    position of every run in ``heads[:runs[0]]``. From the CUDA layout the
+    indices are int32, the order of lanes inside a run and of the heads is
+    the atomics', and ``runs[1]`` is the kernel's counter of runs handed
+    out."""
+
+    src: torch.Tensor
+    first: torch.Tensor
+    run_end: torch.Tensor
+    heads: torch.Tensor    # [L], the first runs[0] used
+    runs: torch.Tensor     # [2] int32
+
+
+def tile_runs(shape, valid, frame, scale, x_oct, y_oct, tile: int) -> TileRuns:
+    """:func:`tile_layout` as the resident descriptor kernel takes it: on
+    a CUDA device a counting sort by tile key in three small kernels
+    (count with ranks, one-block exclusive scan, scatter) and no host
+    synchronisation; on the CPU the plain layout and its run heads. Part
+    of the ``descriptor_hist_banded`` launch, which counts it."""
+    if not use_kernel(x_oct, "tile_runs"):
+        lay = tile_layout(shape, valid.bool(), frame, scale, x_oct, y_oct, tile)
+        heads = torch.nonzero(lay.first).flatten()
+        runs = torch.tensor([heads.numel(), 0], dtype=torch.int32)
+        return TileRuns(*lay, heads, runs)
+    b, s, h, w = shape
+    l = scale.shape[0]
+    n_tiles = b * s * (-(-h // tile)) * (-(-w // tile))
+    dev = x_oct.device
+    ints = torch.empty((2 * (n_tiles + 1) + 4 * l + 2,), dtype=torch.int32, device=dev)
+    count, start, rank, src, run_end, heads, runs = torch.split(
+        ints, [n_tiles + 1, n_tiles + 1, l, l, l, l, 2])
+    first = torch.empty((l,), dtype=torch.uint8, device=dev)
+    lanes = [valid.to(torch.uint8).contiguous(), frame.to(torch.int32).contiguous(),
+             scale.to(torch.int32).contiguous(),
+             require(x_oct.contiguous(), "tile_runs"), require(y_oct.contiguous(), "tile_runs")]
+    _cuda.check(
+        _cuda.library("patches").tile_runs(
+            b, s, h, w, l, *(a.data_ptr() for a in lanes), tile,
+            *(a.data_ptr() for a in (count, start, rank, src, first, run_end, heads, runs)),
+            _cuda.stream_of(x_oct),
+        ),
+        "tile_runs",
+    )
+    return TileRuns(src, first.view(torch.bool), run_end, heads, runs)
+
+
+def _resident_lanes(fields, name, tile, valid, frame, scale, floats, plain, kernel):
+    """The resident-tile route of either stage: ``kernel()`` (the ``name``
+    kernel) for CUDA fields; for CPU fields the layout for real, ``plain(
+    valid, frame, scale, *floats)`` on the sorted lanes and the rows back
+    to their lanes."""
+    if use_kernel(fields.gi, name):
+        return kernel()
+    src = tile_layout(fields.gi.shape, valid, frame, scale, floats[0], floats[1], tile).src
+    rows = plain(valid[src], frame[src], scale[src], *(a[src] for a in floats))
+    out = torch.empty_like(rows)
+    out[src] = rows
+    return out
+
+
+def resident_descriptor_lanes(
+    fields: PatchFields, scale, x_oct, y_oct, sigma_oct, theta, config: SiftConfig,
+    valid, frame, tile: int = DESC_TILE,
+) -> torch.Tensor:
+    """``descriptor_lanes`` under ``use_band_patches`` on CUDA fields: the
+    tile layout (:func:`tile_runs`) and the resident kernel. Equal to the
+    staged kernel bit for bit."""
+    name = "descriptor_hist_banded"
+    valid, frame = _lanes(scale, valid, frame)
+    args = _kernel_args(fields, name, valid, frame, scale, x_oct, y_oct, sigma_oct, theta)
+    b, s, h, w = fields.gi.shape
+    lay = tile_runs(fields.gi.shape, *args[:3], args[3], args[4], tile)
+    out = torch.zeros((scale.shape[0], config.descriptor_length), dtype=torch.float32,
+                      device=fields.gi.device)
+    _cuda.check(
+        _cuda.library("patches").descriptor_hist_banded(
+            fields.gi.data_ptr(), fields.gj.data_ptr(), b, s, h, w,
+            *(a.data_ptr() for a in (lay.heads, lay.runs, lay.run_end, lay.src) + tuple(args[1:])),
+            config.desc_patch_radius, tile, config.n_histograms_per_axis,
+            config.n_descriptor_bins, float(config.descriptor_lambda), out.data_ptr(),
+            _cuda.stream_of(out),
+        ),
+        name,
+    )
+    LAUNCHES[name] += 1
+    return out
+
+
+def _resident_orientations(fields, valid, frame, scale, floats, config):
+    """The resident orientation kernel over :func:`tile_layout`'s order."""
+    name = "orientation_hist_banded"
+    lay = tile_layout(fields.gi.shape, valid, frame, scale, floats[0], floats[1], ORI_TILE)
     args = _kernel_args(fields, name, valid, frame, scale, *floats)[1:]
     b, s, h, w = fields.gi.shape
     l = scale.shape[0]
-    out = torch.zeros((l, n_out), dtype=torch.float32, device=fields.gi.device)
+    out = torch.zeros((l, config.n_orientation_bins), dtype=torch.float32,
+                      device=fields.gi.device)
     order = [lay.first.to(torch.uint8), lay.run_end.to(torch.int32),
              lay.src.to(torch.int32)]
     _cuda.check(
-        getattr(_cuda.library("patches"), name)(
+        _cuda.library("patches").orientation_hist_banded(
             fields.gi.data_ptr(), fields.gj.data_ptr(), b, s, h, w, l,
-            *(a.data_ptr() for a in order + args), radius, tile, *shape_args,
+            *(a.data_ptr() for a in order + args), config.ori_patch_radius, ORI_TILE,
+            config.n_orientation_bins, float(config.orientation_lambda),
             out.data_ptr(), _cuda.stream_of(out),
         ),
         name,
@@ -182,13 +275,12 @@ def orientation_hist_lanes(
     """Raw (un-smoothed) [L, n_bins] orientation histograms."""
     valid, frame = _lanes(scale, valid, frame)
     if config.use_band_patches:
+        floats = (x_oct, y_oct, sigma_oct)
         return _resident_lanes(
-            fields, "orientation_hist_banded", ORI_TILE, config.ori_patch_radius,
-            valid, frame, scale, (x_oct, y_oct, sigma_oct), config.n_orientation_bins,
+            fields, "orientation_hist_banded", ORI_TILE, valid, frame, scale, floats,
             lambda v, f, sc, x, y, sg: orientation_hist_plain(
                 fields.gi, fields.gj, f.long(), sc.long(), x, y, sg, v, config),
-            (config.n_orientation_bins, float(config.orientation_lambda)),
-        )
+            lambda: _resident_orientations(fields, valid, frame, scale, floats, config))
     if not use_kernel(fields.gi, "orientation_hist"):
         return orientation_hist_plain(
             fields.gi, fields.gj, frame.long(), scale.long(), x_oct, y_oct,
@@ -229,14 +321,12 @@ def descriptor_lanes(
     valid, frame = _lanes(scale, valid, frame)
     if config.use_band_patches:
         return _resident_lanes(
-            fields, "descriptor_hist_banded", DESC_TILE, config.desc_patch_radius,
-            valid, frame, scale, (x_oct, y_oct, sigma_oct, theta),
-            config.descriptor_length,
+            fields, "descriptor_hist_banded", DESC_TILE, valid, frame, scale,
+            (x_oct, y_oct, sigma_oct, theta),
             lambda v, f, sc, x, y, sg, th: descriptor_plain(
                 fields.gi, fields.gj, f.long(), sc.long(), x, y, sg, th, v, config),
-            (config.n_histograms_per_axis, config.n_descriptor_bins,
-             float(config.descriptor_lambda)),
-        )
+            lambda: resident_descriptor_lanes(fields, scale, x_oct, y_oct, sigma_oct, theta,
+                                              config, valid, frame))
     if not use_kernel(fields.gi, "descriptor_hist"):
         return descriptor_plain(
             fields.gi, fields.gj, frame.long(), scale.long(), x_oct, y_oct,

@@ -219,6 +219,30 @@ def test_tile_layout_against_numpy(name, tile):
         assert np.rint(np.float32(2.5)) == 2 and np.rint(np.float32(3.5)) == 4
 
 
+@pytest.mark.parametrize("name", sorted(LAYOUT_CASES))
+def test_tile_runs_on_cpu_is_tile_layout_with_its_heads(name):
+    """``tile_runs`` on CPU tensors (the plain version of the resident
+    descriptor form's CUDA layout, which orders lanes inside a run freely)
+    is ``tile_layout`` itself, with ``heads[:runs[0]]`` the run starts and
+    the hand-out counter at 0."""
+    case = LAYOUT_CASES[name]
+    rng = np.random.default_rng(case["seed"] + 100)
+    shape = (2, 3, 70, 101)
+    n = case["n"]
+    valid = rng.random(n) < case.get("p_valid", 0.7)
+    args = (_t(valid), _t(rng.integers(0, 2, n).astype(np.int32)),
+            _t(rng.integers(1, 4, n).astype(np.int32)),
+            _t(rng.uniform(-0.4, 69.4, n).astype(np.float32)),
+            _t(rng.uniform(-0.4, 100.4, n).astype(np.float32)))
+    lay = KP.tile_layout(shape, *args, KP.DESC_TILE)
+    runs = KP.tile_runs(shape, *args, KP.DESC_TILE)
+    for a, b in zip(runs[:3], lay):
+        assert torch.equal(a, b)
+    starts = torch.nonzero(lay.first).flatten()
+    assert int(runs.runs[0]) == starts.numel() and int(runs.runs[1]) == 0
+    assert torch.equal(runs.heads[:starts.numel()], starts)
+
+
 def test_band_route_on_border_and_shared_tiles():
     """Lanes whose windows leave the image and lanes that share a tile
     (two orientations of one keypoint) through both stages: equal to the

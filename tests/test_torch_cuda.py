@@ -168,6 +168,98 @@ def test_resident_patch_kernels_match_staged_and_plain(cuda_dev, shape):
     assert 0 < runs < int(valid.sum())          # some tile holds several lanes
 
 
+def _border_lanes(rng, h, w, n, dev):
+    """Lanes at all four borders and corners, in the interior, with sigmas
+    whose reach is cut by ``desc_patch_radius``, and invalid lanes (with
+    garbage coordinates) in between valid ones."""
+    x = rng.uniform(-0.4, h - 0.6, n)
+    y = rng.uniform(-0.4, w - 0.6, n)
+    edge = np.arange(n) % 4
+    x[edge == 0] = rng.uniform(-0.4, 1.5, (edge == 0).sum())          # top
+    y[edge == 1] = rng.uniform(w - 2.5, w - 0.6, (edge == 1).sum())   # right
+    x[edge == 2] = rng.uniform(h - 2.5, h - 0.6, (edge == 2).sum())   # bottom
+    y[edge == 3] = rng.uniform(-0.4, 1.5, (edge == 3).sum())          # left
+    x[:4], y[:4] = [0.0, 0.0, h - 1.0, h - 1.0], [0.0, w - 1.0, 0.0, w - 1.0]
+    sig = rng.uniform(1.0, 3.6, n)
+    sig[np.arange(n) % 3 == 0] = rng.uniform(3.7, 6.0, (np.arange(n) % 3 == 0).sum())
+    valid = np.arange(n) % 7 != 3
+    x[~valid], y[~valid] = np.nan, 1e9
+    f32 = lambda a: _t(a.astype(np.float32), dev)
+    return f32(x), f32(y), f32(sig), _t(valid, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 8), (3, 6), (2, 12)])
+def test_descriptor_kernels_on_borders_large_sigma_and_shapes(cuda_dev, shape):
+    """The warp-per-lane descriptor kernel, its (4, 8) instance and the
+    generic one, against ``descriptor_plain`` (1e-4 relative to each lane's
+    largest bin: the same positive terms summed in another order), on
+    border lanes, lanes whose window the static radius cuts, and invalid
+    lanes between valid ones; twice, bit for bit; and the resident form at
+    several tiles equal to it bit for bit."""
+    from siftmetal_tpu_torch.ops.kernels.patches import resident_descriptor_lanes
+
+    cfg = SiftConfig(n_histograms_per_axis=shape[0], n_descriptor_bins=shape[1])
+    rng = np.random.default_rng(21)
+    b, h, w, n = 2, 120, 170, 160
+    gauss = _t(rng.uniform(0, 1, (b, cfg.n_gaussians_per_octave, h, w)).astype(np.float32), cuda_dev)
+    fields = prepare_patch_fields(gauss, cfg)
+    x, y, sig, valid = _border_lanes(rng, h, w, n, cuda_dev)
+    scale = _t(rng.integers(1, 4, n).astype(np.int32), cuda_dev)
+    th = _t(rng.uniform(-3.2, 3.2, n).astype(np.float32), cuda_dev)
+    frame = _t(rng.integers(0, b, n).astype(np.int32), cuda_dev)
+    n0 = LAUNCHES["descriptor_hist"]
+    d = descriptor_lanes(fields, scale, x, y, sig, th, cfg, valid=valid, frame=frame)
+    assert LAUNCHES["descriptor_hist"] == n0 + 1
+    assert d.shape == (n, cfg.descriptor_length)
+    dr = PDS.descriptor_plain(fields.gi, fields.gj, frame.long(), scale.long(),
+                              x, y, sig, th, valid, cfg)
+    assert (d[~valid] == 0).all() and bool(torch.isfinite(d).all())
+    assert ((d - dr).abs().amax(1) <= 1e-4 * dr.abs().amax(1) + 1e-7).all()
+    assert bool((d[valid].abs().sum(1) > 0).all())
+    assert torch.equal(d, descriptor_lanes(fields, scale, x, y, sig, th, cfg,
+                                           valid=valid, frame=frame))
+    for tile in (8, 16, 32):
+        band = resident_descriptor_lanes(fields, scale, x, y, sig, th, cfg, valid, frame,
+                                         tile=tile)
+        assert torch.equal(band, d), tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 24, 32])
+def test_tile_runs_kernel_matches_tile_layout_as_sets(cuda_dev, tile):
+    """The CUDA counting sort gives ``tile_layout``'s runs: the same run
+    starts and ends, the same lanes in each run (in any order), invalid
+    lanes after every run, and one head per run."""
+    from siftmetal_tpu_torch.ops.kernels.patches import tile_layout, tile_runs
+
+    rng = np.random.default_rng(tile)
+    shape = (3, 3, 150, 230)
+    b, s, h, w = shape
+    n = 900
+    c = rng.uniform([0, 0], [h, w], (40, 2))
+    xy = c[rng.integers(0, 40, n)] + rng.normal(0, 4.0, (n, 2))
+    valid = rng.random(n) < 0.8
+    xy[~valid] = np.nan
+    args = (_t(valid, cuda_dev), _t(rng.integers(0, b, n).astype(np.int32), cuda_dev),
+            _t(rng.integers(1, s + 1, n).astype(np.int32), cuda_dev),
+            _t(xy[:, 0].astype(np.float32), cuda_dev), _t(xy[:, 1].astype(np.float32), cuda_dev))
+    ref = tile_layout(shape, *args, tile)
+    got = tile_runs(shape, *args, tile)
+    assert torch.equal(got.first.cpu(), ref.first.cpu())
+    assert torch.equal(got.run_end.long().cpu(), ref.run_end.cpu())
+    src, rsrc = got.src.long().cpu().numpy(), ref.src.cpu().numpy()
+    ends = got.run_end.long().cpu().numpy()
+    starts = np.nonzero(ref.first.cpu().numpy())[0]
+    for p in starts:
+        assert sorted(src[p:ends[p]]) == sorted(rsrc[p:ends[p]])
+    nv = int(valid.sum())
+    assert sorted(src[nv:]) == sorted(rsrc[nv:])
+    n_runs = int(got.runs[0])
+    assert n_runs == len(starts) and int(got.runs[1]) == 0
+    assert sorted(got.heads[:n_runs].cpu().tolist()) == starts.tolist()
+
+
 @pytest.mark.cuda
 def test_bf16_band_kernels_match_plain(cuda_dev):
     """bf16-input band passes vs their plain versions. The cascade blur's
