@@ -11,10 +11,12 @@ Phases, in order; any failure exits non-zero and prints no result:
     same inputs, at the shapes the 640x480 batch-8 paths give it, with
     its tolerance, its time (CUDA events) and its bound (fourteen rows;
     orientation_hist_banded and descriptor_hist_banded also against the
-    staged kernels, bit for bit; the descriptor rows launched twice and
-    equal bit for bit, with their registers, stack frame and spills from
-    the build log; the descriptor form's CUDA lane layout against
-    tile_layout, run by run, and a sweep of its tile side);
+    staged kernels, bit for bit, each with its CUDA lane layout against
+    tile_layout run by run and a sweep of its tile side; orient_desc's
+    descriptors against the staged descriptor kernel at its own theta,
+    bit for bit; the descriptor rows, the fused row and the resident rows
+    launched twice and equal bit for bit, with their registers, stack
+    frame and spills from the build log);
  3. main path: SIFT(480, 640).extract_batch on 8 seeded noise frames (as
     bench.py makes them), with every launch counter set to 0 just before
     and read just after; frames/s from CUDA events;
@@ -379,23 +381,32 @@ def _resident_kernels(reports, peaks, fields, cfg, ori, desc, ops):
     band = SiftConfig(use_band_patches=True)
     b, _, H, W = fields.gi.shape
     half = math.sqrt(2.0) * cfg.descriptor_lambda * (cfg.n_histograms_per_axis + 1) / cfg.n_histograms_per_axis
+    # Per stage: kernel name, tile, radius, lanes and results, the route
+    # under use_band_patches, the resident kernel at a given tile, the
+    # plain version, a lane's reach, the swept tiles, the kernel's name and
+    # its ptxas entry.
     stages = {
         "orientation": (
             "orientation_hist_banded", KP.ORI_TILE, cfg.ori_patch_radius, ori,
             lambda a, v, f: KP.orientation_hist_lanes(fields, *a, band, valid=v, frame=f),
+            lambda a, v, f, t: KP.resident_orientation_lanes(fields, *a, cfg, v, f, tile=t),
             lambda a, v, f: DS.orientation_hist_plain(fields.gi, fields.gj, f.long(), a[0].long(),
                                                       *a[1:], v, cfg),
             lambda sg: torch.ceil(3.0 * cfg.orientation_lambda * sg) + 1,
+            (8, 16, 24, 32), "resident_orientation_kernel", "resident_orientation_kernel",
         ),
         "descriptor": (
             "descriptor_hist_banded", KP.DESC_TILE, cfg.desc_patch_radius, desc,
             lambda a, v, f: KP.descriptor_lanes(fields, *a, band, valid=v, frame=f),
+            lambda a, v, f, t: KP.resident_descriptor_lanes(fields, *a, cfg, v, f, tile=t),
             lambda a, v, f: DS.descriptor_plain(fields.gi, fields.gj, f.long(), a[0].long(),
                                                 *a[1:], v, cfg),
             lambda sg: torch.ceil(half * sg + 0.5) + 1,
+            (8, 12, 16, 24, 32), "resident_descriptor_kernel", "26resident_descriptor_kernelINS_6Hist48",
         ),
     }
-    for stage, (name, tile, radius, (args, valid, frame, staged, plain_out), kernel, plain, reach_of) in stages.items():
+    for stage, (name, tile, radius, (args, valid, frame, staged, plain_out), kernel, at_tile, plain,
+                reach_of, tiles, kernel_name, entry) in stages.items():
         rep = Report(name, "siftmetal_tpu_torch/csrc/patches.cu",
                      "siftmetal_tpu/ops/pallas/patches.py:1053", 1e-4)
         got = kernel(args, valid, frame)
@@ -415,14 +426,13 @@ def _resident_kernels(reports, peaks, fields, cfg, ori, desc, ops):
 
         staged_cfg = SiftConfig()
         staged_fn = (KP.orientation_hist_lanes if stage == "orientation" else KP.descriptor_lanes)
-        torch_layout = lambda: KP.tile_layout(fields.gi.shape, valid, frame, args[0], args[1], args[2], tile)
         runs = {"resident": lambda: kernel(args, valid, frame),
                 "staged": lambda: staged_fn(fields, *args, staged_cfg, valid=valid, frame=frame),
-                "PyTorch layout": torch_layout}
-        if stage == "descriptor":
-            runs["CUDA layout"] = lambda: KP.tile_runs(fields.gi.shape, valid, frame, args[0], args[1],
-                                                       args[2], tile)
-            _check_tile_runs(runs["CUDA layout"](), lay, valid)
+                "CUDA layout": lambda: KP.tile_runs(fields.gi.shape, valid, frame, args[0], args[1],
+                                                    args[2], tile),
+                "PyTorch layout": lambda: KP.tile_layout(fields.gi.shape, valid, frame, args[0],
+                                                         args[1], args[2], tile)}
+        _check_tile_runs(runs["CUDA layout"](), lay, valid)
         # In turns: each form forwards, then backwards.
         turns = {k: [] for k in runs}
         for key in list(runs) + list(runs)[::-1]:
@@ -446,18 +456,18 @@ def _resident_kernels(reports, peaks, fields, cfg, ori, desc, ops):
         region = float((rows * cols).sum())
         per_run = torch.bincount(run[:nv], minlength=n_runs)
         rep.bound(4.0 * (2 * region + (len(args) + 4) * valid.numel() + got.numel()), ops[stage], peaks)
-        layout = "CUDA layout" if stage == "descriptor" else "PyTorch layout"
         print(f"[kernel] {name}: equal to the staged kernel bit for bit, two launches equal; {nv} valid "
               f"lanes in {n_runs} tile runs of side {tile} ({nv / max(n_runs, 1):.3f} lanes a run, most "
               f"{int(per_run.max())}; {int((per_run > 1).sum())} runs hold several), regions "
               f"{region / 1e6:.2f} Mpx; in turns (ms, forwards then backwards): "
               f"{json.dumps({k: [round(x, 4) for x in v] for k, v in turns.items()})}; its lane layout "
-              f"({layout}) {t[layout]:.4f} ms = {100.0 * t[layout] / t['resident']:.1f}% of it", flush=True)
-        if stage == "descriptor":
-            print(f"[kernel] {name}: {_ptxas_line('26resident_descriptor_kernelINS_6Hist48')}; "
-                  f"{_ptxas_line('layout_count_kernel')}; {_ptxas_line('layout_scan_kernel')}; "
-                  f"{_ptxas_line('layout_scatter_kernel')}", flush=True)
-            _tile_sweep(fields, cfg, args, valid, frame, staged, tile)
+              f"(CUDA layout) {t['CUDA layout']:.4f} ms = {100.0 * t['CUDA layout'] / t['resident']:.1f}% "
+              f"of it; {t['resident'] / t['staged']:.2f}x the staged kernel", flush=True)
+        print(f"[kernel] {name}: {_ptxas_line(entry)}; {_ptxas_line('layout_count_kernel')}; "
+              f"{_ptxas_line('layout_scan_kernel')}; {_ptxas_line('layout_scatter_kernel')}", flush=True)
+        _tile_sweep(name, tiles, lambda t_: at_tile(args, valid, frame, t_), staged,
+                    lambda t_: KP.tile_runs(fields.gi.shape, valid, frame, args[0], args[1], args[2], t_),
+                    int(valid.sum()), tile, kernel_name)
         rep.check(err, _max_err(got, plain_out))
         reports[name] = rep
 
@@ -480,25 +490,41 @@ def _check_tile_runs(got, lay, valid):
              "tile_runs: run heads differ")
 
 
-def _tile_sweep(fields, cfg, args, valid, frame, staged, chosen):
-    """The resident descriptor form at other tile sides: lanes a run and
-    time, in turns (forwards, then backwards), each equal to the staged
+def _device_ms(fn, frags, calls=3):
+    """Device ms per call of ``fn`` spent in kernels whose names hold each
+    of ``frags`` (torch.profiler over ``calls`` calls)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {f: sum(e.time_range.elapsed_us() for e in dev if f in e.name) / 1e3 / calls for f in frags}
+
+
+def _tile_sweep(name, tiles, at_tile, staged, layout_at, n_valid, chosen, kernel_frag):
+    """A resident form (``at_tile(tile)``, with its layout) at other tile
+    sides: lanes a run, time in turns (forwards, then backwards) and the
+    device time of its kernel and of its layout, each equal to the staged
     kernel bit for bit."""
     import torch
 
-    from siftmetal_tpu_torch.ops.kernels import patches as KP
-
-    tiles = (8, 12, 16, 24, 32)
     out = {}
     for tile in tiles + tiles[::-1]:
-        fn = lambda: KP.resident_descriptor_lanes(fields, *args, cfg, valid, frame, tile=tile)
+        fn = lambda: at_tile(tile)
         if tile not in out:
-            _require(torch.equal(fn(), staged), f"resident descriptor at tile {tile} differs from staged")
-            n_runs = int(KP.tile_runs(fields.gi.shape, valid, frame, args[0], args[1], args[2], tile).runs[0])
-            out[tile] = [int(valid.sum()) / max(n_runs, 1)]
+            _require(torch.equal(fn(), staged), f"{name} at tile {tile} differs from the staged kernel")
+            dev = _device_ms(fn, (kernel_frag, "layout_"))
+            out[tile] = [n_valid / max(int(layout_at(tile).runs[0]), 1), dev[kernel_frag], dev["layout_"]]
         out[tile].append(_time_ms(fn, 10))
-    print("[kernel] descriptor_hist_banded tile sweep (side: lanes a run, ms forwards, ms backwards; "
-          f"chosen {chosen}): " + "; ".join(f"{k}: {v[0]:.3f}, {v[1]:.4f}, {v[2]:.4f}" for k, v in out.items()),
+    print(f"[kernel] {name} tile sweep (side: lanes a run, device ms of the kernel, of the layout, "
+          f"ms forwards, ms backwards; chosen {chosen}): "
+          + "; ".join(f"{k}: {v[0]:.3f}, {v[1]:.4f}, {v[2]:.4f}, {v[3]:.4f}, {v[4]:.4f}" for k, v in out.items()),
           flush=True)
 
 
@@ -618,10 +644,21 @@ def _slice2_kernels(reports, peaks, gray, g0, d0, cd, fields, kpc, frame, ori_ar
     _require(int(qd.max()) <= 1, "orient_desc: quantized descriptors differ by more than 1")
     _require(bool((raw[~ov] == 0).all()) and bool((th[~ov] == 0).all()),
              "orient_desc: missing peaks are not zero")
+    # The staged descriptor kernel on the keypoints repeated max_ori times,
+    # at the fused theta and peak validity: the same warp routine.
+    rep4 = lambda t_: t_.repeat_interleave(m)
+    staged = KP.descriptor_lanes(fields, *(rep4(a) for a in ori_args), th.reshape(-1), cfg,
+                                 valid=ov.reshape(-1), frame=rep4(frame))
+    _require(torch.equal(raw.reshape(staged.shape), staged),
+             f"orient_desc: differs from the staged descriptor kernel at its own theta (max "
+             f"{_max_err(raw.reshape(staged.shape), staged):.3e})")
+    r2, t2, o2 = fused()
+    _require(torch.equal(raw, r2) and torch.equal(th, t2) and torch.equal(ov, o2),
+             "orient_desc: a second launch differs")
+    del staged, r2
     rep.row["ms"] = _time_ms(fused, 10)
     rep.row["plain_ms"] = _time_ms(
         lambda: KP.orient_desc_lanes_plain(fields, *ori_args, cfg, valid, frame), 1, 0)
-    rep4 = lambda t_: t_.repeat_interleave(m)
     d_args = (rep4(ori_args[0]), rep4(ori_args[1]), rep4(ori_args[2]), rep4(ori_args[3]),
               tp.reshape(-1))
     n_desc = _rotated_samples(d_args, ovp.reshape(-1), H, W, cfg)
@@ -635,7 +672,12 @@ def _slice2_kernels(reports, peaks, gray, g0, d0, cd, fields, kpc, frame, ori_ar
           f"{int(differ.sum())} lanes differ in peak validity, all on a tie (gap < 1e-6); "
           f"theta max err {float(th_err[same].max()):.3e} (largest share of its tolerance "
           f"{float((th_err[same] / th_tol[same]).max()):.3f}); max peaks per keypoint "
-          f"{int(ovp.sum(1).max())}", flush=True)
+          f"{int(ovp.sum(1).max())}; descriptors equal to the staged descriptor kernel at the fused "
+          f"theta bit for bit, two launches equal; {_ptxas_line('18orient_desc_kernelINS_6Hist48')}",
+          flush=True)
+    staged_pair = reports["orientation_hist"].row["ms"] + reports["descriptor_hist"].row["ms"]
+    print(f"[kernel] orient_desc {rep.row['ms']:.4f} ms against the staged pair (rows 5 + 6) "
+          f"{staged_pair:.4f} ms + 0.15 = {staged_pair + 0.15:.4f} ms", flush=True)
     add(rep, err, _max_err(a, r))
     del raw, rp, a, r
 
@@ -976,6 +1018,8 @@ def phase_fast_path(reports, parity_ctr, smi_line):
         for _ in range(2):
             t += _windows(lambda: sv.extract_batch(x), 1, 5)
             t += _windows(lambda: parity.extract_batch(x), 1, 5)
+        if tag == "fused":
+            _profile(tag, lambda: sv.extract_batch(x))
         print(f"[{tag}] extract_batch 8x480x640 in turns with the default route (ms/batch): "
               f"{tag} {t[0]:.3f}, default {t[1]:.3f}, {tag} {t[2]:.3f}, default {t[3]:.3f}; "
               f"descriptors {sum(vctr['n_descriptors'])} vs {sum(parity_ctr['n_descriptors'])} ({smi_line})",
@@ -1268,8 +1312,9 @@ def _profile(tag, fn):
     print(f"[profile {tag}] most device time: " + "; ".join(
         f"{name[:44]} {ms:.3f} ms x{c}" for name, (ms, c) in top), flush=True)
     # The patch kernels by form, whether or not they are among the top.
-    forms = {"descriptor (staged)": "::descriptor_kernel<", "descriptor (resident)": "resident_descriptor",
-             "descriptor layout": "layout_", "fused orient_desc": "orient_desc_kernel"}
+    forms = {"orientation (staged)": "::orientation_kernel", "orientation (resident)": "resident_orientation",
+             "descriptor (staged)": "::descriptor_kernel<", "descriptor (resident)": "resident_descriptor",
+             "resident layout": "layout_", "fused orient_desc": "orient_desc_kernel"}
     sums = {}
     for form, frag in forms.items():
         hit = [v for k, v in per.items() if frag in k]

@@ -45,20 +45,28 @@
 // No atomics, one fixed order: a run repeats bit for bit. Every other
 // shape the launcher admits (n_hist <= 8, n_ori <= 16) takes a generic
 // instance: one warp per lane, the bins in the warp's shared memory.
-// cos / sin of theta come from sincospif (see descriptor_warp). The fused
-// form keeps descriptor_accumulate's per-thread columns.
+// cos / sin of theta come from sincospif (see descriptor_warp).
 //
 // Fused form (replaces _orient_desc_kernel, through
-// orient_desc_lanes_pallas): one block per KEYPOINT builds the orientation
-// histogram as above, then one thread runs the circular box smoothings,
-// the peak test (local maximum, >= peak_thr * max, > 0) and the parabolic
-// refinement on the shared-memory histogram, keeps the first max_ori peaks
-// in BIN order (IPOL's emission order; the staged path keeps the highest
-// max_ori, which differs only for a keypoint with more peaks than that),
-// and the block then accumulates one descriptor per kept peak with the
-// same device functions as the staged kernels. Nothing between the two
-// stages goes through device memory and no lanes are compacted on the
-// host. Invalid lanes and missing peaks write zeros.
+// orient_desc_lanes_pallas): one block per KEYPOINT of the staged
+// descriptor block's shape (8 warps for (4, 8), 4 for the generic
+// instance). Its first 128 threads build the orientation histogram with
+// the staged orientation kernel's columns and thread order, so the raw
+// histogram is that kernel's bit for bit. One warp then runs the circular
+// box smoothings, the peak test (local maximum, >= peak_thr * max, > 0)
+// and the parabolic refinement with the bins across its lanes (neighbours
+// by shuffle, every sum and product rounded as the plain version rounds
+// them), and ranks the peaks in BIN order by ballot: the first max_ori
+// are kept (IPOL's emission order; the staged path keeps the highest
+// max_ori, which differs only for a keypoint with more peaks than that).
+// Each kept peak then goes through descriptor_lane, the staged
+// descriptor kernel's routine, with the block's warps on one peak at a
+// time (Hist48) or one warp a peak (HistAny), so the fused descriptor at
+// (keypoint, theta) equals the staged kernel's at the same theta bit for
+// bit. The histogram columns and the descriptor scratch share their
+// shared memory (never live together). Nothing between the two stages
+// goes through device memory and no lanes are compacted on the host.
+// Invalid lanes and missing peaks write zeros.
 //
 // Resident-tile form (replaces _lanes_banded_call, siftmetal_tpu/ops/pallas/
 // patches.py:1053, the band-resident mode of the two staged TPU kernels):
@@ -71,30 +79,32 @@
 // run's sample windows (never more than (tile + 2 radius)^2 pixels of gi
 // and gj) into shared memory and computes the run's lanes reading gi/gj
 // from the copy, each lane's row straight to out[lane] (no un-permute
-// pass). Orientation: the wrapper sorts lanes by tile, stably, in
-// PyTorch; one block per run start, the staged kernel's device functions,
-// thread order and block size, tile 32, radius 18: 68^2 x 8 B = 37 KB +
-// 18 KB of columns (four blocks an SM). Descriptor: the lanes are laid out
-// by tile_runs, a counting sort in three small kernels (no host
-// synchronisation); a persistent grid of blocks takes the runs from a
-// counter, the copy goes by cp.async, and the block's 8 warps compute one
-// lane at a time with descriptor_warp, so the result equals the staged
-// kernel's bit for bit. Tile 16, radius 40: 96^2 x 8 B = 74 KB + 35 KB of
-// staging = 109 KB, two blocks (16 warps) an SM; a measured sweep over
-// sides 8-32 (chip_smoke.py) finds 16 fastest: runs hold 1.5-1.6 lanes at
-// every side there, and above 16 an SM keeps one block. Every octave takes
-// this form: the TPU's rows >= band-rows gate was a buffer-size condition.
+// pass). Both forms lay the lanes out with tile_runs, a counting sort in
+// three small kernels (no host synchronisation), and run a persistent grid
+// of blocks that take the runs from a counter and copy each run's region
+// by cp.async. Orientation: blocks of 128 threads with the staged
+// kernel's device functions and thread order, so the result equals it bit
+// for bit; radius 18, (tile + 36)^2 x 8 B of region + 18 KB of columns; the
+// tile side (ORI_TILE in ops/kernels/patches.py) spends the least device
+// time, kernel and layout together, in a measured sweep over 8-32
+// (chip_smoke.py): the call itself is host-bound. Descriptor: the block's 8
+// warps compute one lane at a time with descriptor_warp, so the result
+// equals the staged kernel's bit for bit. Tile 16, radius 40: 96^2 x 8 B =
+// 74 KB + 35 KB of staging = 109 KB, two blocks (16 warps) an SM; the sweep
+// finds 16 fastest: runs hold 1.5-1.6 lanes at every side there, and above
+// 16 an SM keeps one block. Every octave takes this form: the TPU's
+// rows >= band-rows gate was a buffer-size condition.
 //
 // Bound on an H100, by chip_smoke.py's count at the main path's octave-0
 // lanes (each distinct gradient pixel read once; about 90 fp32 operations
 // per orientation sample and 284 per descriptor sample, a division counted
 // 8, sqrt 6, exp 6, atan2 35): the descriptor, fused and resident
 // descriptor kernels by operations, the two orientation kernels by bytes,
-// the two sides never more than 2x apart. The staged descriptor kernel
-// runs 8x above that, its resident form 13x (with its layout), the others
-// 14-70x: what they wait for is latency (windows that hit L1/L2, the
-// special-function unit's divisions, exp and atan2, and, for the resident
-// forms, two regions an SM), not a roofline.
+// the two sides never more than 2x apart. What the kernels wait for is
+// latency (windows that hit L1/L2, the special-function unit's divisions,
+// exp and atan2, and, for the resident forms, the region copy and few
+// blocks an SM), not a roofline; PERF.md keeps each one's distance from
+// its bound.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -246,65 +256,11 @@ __global__ void orientation_kernel(const float* __restrict__ gi,
 constexpr int kMaxHist = 8;
 constexpr int kMaxOri = 16;
 
-// Adds lane `ln`'s descriptor samples for reference orientation `th` into
-// the per-thread columns hist[bin * nt + tid] (zeroed by the caller).
-__device__ __forceinline__ void descriptor_accumulate(
-    float* hist, int tid, int nt, const Lane& ln, float th, const Field& fd,
-    int H, int W, int radius, int n_hist, int n_ori, float lam) {
-  const float ct = cosf(th), st = sinf(th);
-  const float half = (float)((double)lam * (n_hist + 1) / n_hist);
-  const float den = (float)(2.0 * (double)lam * (double)lam);
-  const float cell = (float)(2.0 * (double)lam / n_hist);
-  const float c_off = (float)((n_hist + 1) / 2.0);
-  const float o_step = (float)(2.0 * kPi / n_ori);
-  const float o_scale = (float)(n_ori / (2.0 * kPi));
-  const Window wd = descriptor_window(ln, H, W, radius, n_hist, lam);
-  const int u0 = wd.u0, v0 = wd.v0;
-  const int nv = wd.v1 - v0 + 1;
-  const int n = (wd.u1 - u0 + 1) * nv;
-  for (int p = tid; p < n; p += nt) {
-    const int u = u0 + p / nv, v = v0 + p % nv;
-    const float dm = (float)u - ln.x;
-    const float dn = (float)v - ln.y;
-    const float xr = (ct * dm + st * dn) / ln.sg;
-    const float yr = (-st * dm + ct * dn) / ln.sg;
-    if (!(fabsf(xr) < half && fabsf(yr) < half)) continue;
-    const int o = (u - fd.r0) * fd.pitch + (v - fd.c0);
-    const float a = fd.gi[o], b = fd.gj[o];
-    const float mag = sqrtf(a * a + b * b);
-    const float contrib = expf(-(xr * xr + yr * yr) / den) * mag;
-    float wr[kMaxHist], wc[kMaxHist], wo[kMaxOri];
-    for (int c = 0; c < n_hist; ++c) {
-      const float center = ((float)(c + 1) - c_off) * cell;
-      wr[c] = fmaxf(0.f, 1.f - fabsf(xr - center) / cell);
-      wc[c] = fmaxf(0.f, 1.f - fabsf(yr - center) / cell);
-    }
-    const float phi = mod_2pi(atan2f(b, a) - th);
-    for (int k = 0; k < n_ori; ++k) {
-      float d = fabsf(phi - (float)k * o_step);
-      d = fminf(d, kTwoPi - d);
-      wo[k] = fmaxf(0.f, 1.f - d * o_scale);
-    }
-    for (int r = 0; r < n_hist; ++r) {
-      if (wr[r] == 0.f) continue;
-      const float cr = contrib * wr[r];
-      for (int c = 0; c < n_hist; ++c) {
-        if (wc[c] == 0.f) continue;
-        const float crc = cr * wc[c];
-        float* hb = hist + ((r * n_hist + c) * n_ori) * nt + tid;
-        for (int k = 0; k < n_ori; ++k)
-          if (wo[k] != 0.f) hb[k * nt] += crc * wo[k];
-      }
-    }
-  }
-}
-
 // --- Descriptor: Hist::kParts warps per lane ---------------------------------
 
 constexpr unsigned kFullWarp = 0xffffffffu;
 
-// The per-lane constants of IPOL Alg. 12, with descriptor_accumulate's
-// expressions.
+// The per-lane constants of IPOL Alg. 12.
 struct DescConst {
   float half, den, cell, c_off, o_step, o_scale;
 };
@@ -560,14 +516,16 @@ __device__ __forceinline__ void descriptor_lane(
   group_sync<Hist>(g);  // red is read before the group's next lane
 }
 
-// Warps of a staged block: one lane of Hist48, four lanes of HistAny.
+// Warps of a staged block (one lane of Hist48, four lanes of HistAny) and
+// of a fused block.
 template <class Hist>
 __host__ __device__ constexpr int staged_warps() {
   return Hist::kParts > 4 ? Hist::kParts : 4;
 }
 
-// Shared memory of `warps` warps (a staged block, or a resident block
-// before its region): the warps' scratch, then the groups' reduction rows.
+// Shared memory of `warps` warps (a staged or fused block, or a resident
+// block before its region): the warps' scratch, then the groups' reduction
+// rows.
 template <class Hist>
 __host__ __device__ constexpr int lane_smem(int warps) {
   return warps * (int)sizeof(WarpScratch<Hist>) +
@@ -607,176 +565,152 @@ __global__ void __launch_bounds__(staged_warps<Hist>() * 32)
                   plane_field(ln, gi, gj, S, H, W), H, W, radius, lam, out_l);
 }
 
+// --- Fused orientation + descriptors -----------------------------------------
+
 constexpr int kMaxBins = 64;
 constexpr int kMaxPeaks = 8;
+constexpr int kOriThreads = 128;  // the staged orientation kernel's block
 
-__global__ void orient_desc_kernel(
-    const float* __restrict__ gi, const float* __restrict__ gj, int B, int S,
-    int H, int W, const uint8_t* __restrict__ valid,
-    const int* __restrict__ frame, const int* __restrict__ scale,
-    const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ sigma, int ori_radius, int n_bins, float lam_ori,
-    int smooth_iters, float peak_thr, int max_ori, int desc_radius, int n_hist,
-    int n_ori, float lam_desc, float* __restrict__ raw,
-    float* __restrict__ theta, uint8_t* __restrict__ ori_valid) {
-  extern __shared__ float hist[];  // [max(n_bins, n_hist^2 n_ori)][NT]
-  __shared__ float h[2][kMaxBins];
+// Bin k of a histogram held across a warp: slot k / 32 of thread k % 32.
+// Every thread of the warp calls it (two shuffles).
+__device__ __forceinline__ float warp_bin(const float (&v)[2], int k) {
+  const float a = __shfl_sync(kFullWarp, v[0], k & 31);
+  const float b = __shfl_sync(kFullWarp, v[1], k & 31);
+  return k < 32 ? a : b;
+}
+
+// The circular box smoothings, the peak test and the parabolic refinement
+// of the raw histogram h[0 .. n_bins) by the calling warp (all 32 threads,
+// converged), with the plain version's roundings. The thetas of the first
+// max_ori peaks in bin order go to th[0 ..); returns their number.
+__device__ __forceinline__ int warp_peaks(const float* h, int n_bins,
+                                          int smooth_iters, float peak_thr,
+                                          int max_ori, float* th) {
+  const int lane = threadIdx.x & 31;
+  const int k0 = lane, k1 = lane + 32;
+  float v[2] = {k0 < n_bins ? h[k0] : 0.f, k1 < n_bins ? h[k1] : 0.f};
+  // Bins k - 1 and k + 1 of each slot (any k: slots past n_bins are never
+  // read as a neighbour and never tested).
+  const int pk[2] = {(k0 + n_bins - 1) % n_bins, (k1 + n_bins - 1) % n_bins};
+  const int nk[2] = {(k0 + 1) % n_bins, (k1 + 1) % n_bins};
+  for (int it = 0; it < smooth_iters; ++it) {
+    float s[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float pv = warp_bin(v, pk[i]), nx = warp_bin(v, nk[i]);
+      s[i] = __fadd_rn(__fadd_rn(pv, v[i]), nx) / 3.0f;
+    }
+    v[0] = s[0];
+    v[1] = s[1];
+  }
+  float hmax = k0 < n_bins ? v[0] : -INFINITY;
+  if (k1 < n_bins) hmax = fmaxf(hmax, v[1]);
+  for (int off = 16; off > 0; off >>= 1)
+    hmax = fmaxf(hmax, __shfl_xor_sync(kFullWarp, hmax, off));
+  const float floor_v = __fmul_rn(peak_thr, hmax);
+  const float bin_w = (float)(2.0 * kPi / n_bins);
+  const float pi_f = (float)kPi;
+  bool peak[2];
+  float t[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int k = lane + 32 * i;
+    const float c = v[i], pv = warp_bin(v, pk[i]), nx = warp_bin(v, nk[i]);
+    peak[i] = k < n_bins && c > pv && c > nx && c >= floor_v && c > 0.f;
+    const float den =
+        __fmul_rn(2.0f, __fsub_rn(__fadd_rn(pv, nx), __fmul_rn(2.0f, c)));
+    const float off = __fsub_rn(pv, nx) / den;
+    const float a = __fmul_rn(__fadd_rn(__fadd_rn((float)k, 0.5f), off), bin_w);
+    t[i] = __fsub_rn(mod_2pi(__fadd_rn(a, pi_f)), pi_f);
+  }
+  // Rank in bin order: the peaks below this bin in the warp's two ballots.
+  const unsigned below = (1u << lane) - 1u;
+  const unsigned b0 = __ballot_sync(kFullWarp, peak[0]);
+  const unsigned b1 = __ballot_sync(kFullWarp, peak[1]);
+  const int r0 = __popc(b0 & below), r1 = __popc(b0) + __popc(b1 & below);
+  if (peak[0] && r0 < max_ori) th[r0] = t[0];
+  if (peak[1] && r1 < max_ori) th[r1] = t[1];
+  return min(__popc(b0) + __popc(b1), max_ori);
+}
+
+// One block of staged_warps<Hist>() warps per keypoint lane: the staged
+// orientation kernel's histogram (its 128 columns and thread order), the
+// peaks by warp 0, then each kept peak by descriptor_lane (group g of
+// Hist::kParts warps takes peaks g, g + groups, ...). The dynamic shared
+// memory holds first the orientation columns, then the warps' descriptor
+// scratch and reduction rows.
+template <class Hist>
+__global__ void __launch_bounds__(staged_warps<Hist>() * 32)
+    orient_desc_kernel(const float* __restrict__ gi,
+                       const float* __restrict__ gj, int B, int S, int H,
+                       int W, const uint8_t* __restrict__ valid,
+                       const int* __restrict__ frame,
+                       const int* __restrict__ scale,
+                       const float* __restrict__ x, const float* __restrict__ y,
+                       const float* __restrict__ sigma, int ori_radius,
+                       int n_bins, float lam_ori, int smooth_iters,
+                       float peak_thr, int max_ori, int desc_radius, int n_hist,
+                       int n_ori, float lam_desc, float* __restrict__ raw,
+                       float* __restrict__ theta,
+                       uint8_t* __restrict__ ori_valid) {
+  constexpr int kWarps = staged_warps<Hist>();
+  constexpr int kGroups = kWarps / Hist::kParts;
+  extern __shared__ __align__(16) unsigned char warp_smem[];
+  __shared__ float h_raw[kMaxBins];
   __shared__ float th_p[kMaxPeaks];
   __shared__ int n_peaks;
   const int l = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int n_out = n_hist * n_hist * n_ori;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int w = tid >> 5;
+  Hist hist(n_hist, n_ori);
+  const int n_out = hist.n_out();
   float* raw_l = raw + (long long)l * max_ori * n_out;
+  float* theta_l = theta + (long long)l * max_ori;
+  uint8_t* ov_l = ori_valid + (long long)l * max_ori;
   if (!valid[l]) {
     for (int k = tid; k < max_ori * n_out; k += nt) raw_l[k] = 0.f;
     for (int k = tid; k < max_ori; k += nt) {
-      theta[(long long)l * max_ori + k] = 0.f;
-      ori_valid[(long long)l * max_ori + k] = 0;
+      theta_l[k] = 0.f;
+      ov_l[k] = 0;
     }
     return;
   }
   const Lane ln = lane_of(l, B, S, H, W, frame, scale, x, y, sigma);
-
-  // Orientation histogram.
-  for (int k = 0; k < n_bins; ++k) hist[k * nt + tid] = 0.f;
   const Field fd = plane_field(ln, gi, gj, S, H, W);
-  orientation_accumulate(hist, tid, nt, ln, fd, H, W, ori_radius, n_bins,
-                         lam_ori);
-  __syncthreads();
-  for (int k = tid; k < n_bins; k += nt) h[0][k] = column_sum(hist, k, nt);
-  __syncthreads();
 
-  // Smoothing, peaks and the parabolic offset: n_bins values, one thread.
-  // Products and sums round separately, as the plain version's do.
-  if (tid == 0) {
-    int cur = 0;
-    for (int it = 0; it < smooth_iters; ++it) {
-      for (int k = 0; k < n_bins; ++k) {
-        const float pv = h[cur][(k + n_bins - 1) % n_bins];
-        const float nx = h[cur][(k + 1) % n_bins];
-        h[cur ^ 1][k] = __fadd_rn(__fadd_rn(pv, h[cur][k]), nx) / 3.0f;
-      }
-      cur ^= 1;
-    }
-    float hmax = h[cur][0];
-    for (int k = 1; k < n_bins; ++k) hmax = fmaxf(hmax, h[cur][k]);
-    const float floor_v = __fmul_rn(peak_thr, hmax);
-    const float bin_w = (float)(2.0 * kPi / n_bins);
-    const float pi_f = (float)kPi;
-    int np = 0;
-    for (int k = 0; k < n_bins && np < max_ori; ++k) {
-      const float c = h[cur][k];
-      const float pv = h[cur][(k + n_bins - 1) % n_bins];
-      const float nx = h[cur][(k + 1) % n_bins];
-      if (!(c > pv && c > nx && c >= floor_v && c > 0.f)) continue;
-      const float den = __fmul_rn(
-          2.0f, __fsub_rn(__fadd_rn(pv, nx), __fmul_rn(2.0f, c)));
-      const float off = __fsub_rn(pv, nx) / den;
-      const float t = __fmul_rn(__fadd_rn(__fadd_rn((float)k, 0.5f), off), bin_w);
-      th_p[np++] = __fsub_rn(mod_2pi(__fadd_rn(t, pi_f)), pi_f);
-    }
-    n_peaks = np;
+  float* cols = reinterpret_cast<float*>(warp_smem);  // [n_bins][kOriThreads]
+  if (tid < kOriThreads) {
+    for (int k = 0; k < n_bins; ++k) cols[k * kOriThreads + tid] = 0.f;
+    orientation_accumulate(cols, tid, kOriThreads, ln, fd, H, W, ori_radius,
+                           n_bins, lam_ori);
   }
   __syncthreads();
+  for (int k = tid; k < n_bins; k += nt)
+    h_raw[k] = column_sum(cols, k, kOriThreads);
+  __syncthreads();
+  if (w == 0) {
+    const int np = warp_peaks(h_raw, n_bins, smooth_iters, peak_thr, max_ori,
+                              th_p);
+    if (tid == 0) n_peaks = np;
+  }
+  __syncthreads();  // the columns are dead from here: the scratch takes them
   const int np = n_peaks;
   for (int k = tid; k < max_ori; k += nt) {
-    theta[(long long)l * max_ori + k] = k < np ? th_p[k] : 0.f;
-    ori_valid[(long long)l * max_ori + k] = k < np ? 1 : 0;
+    theta_l[k] = k < np ? th_p[k] : 0.f;
+    ov_l[k] = k < np ? 1 : 0;
   }
+  for (int k = np * n_out + tid; k < max_ori * n_out; k += nt) raw_l[k] = 0.f;
 
-  // One descriptor per kept peak.
-  for (int p = 0; p < max_ori; ++p) {
-    float* out_p = raw_l + (long long)p * n_out;
-    if (p >= np) {
-      for (int k = tid; k < n_out; k += nt) out_p[k] = 0.f;
-      continue;
-    }
-    __syncthreads();  // the previous peak's column sums are done
-    for (int k = 0; k < n_out; ++k) hist[k * nt + tid] = 0.f;
-    descriptor_accumulate(hist, tid, nt, ln, th_p[p], fd, H, W, desc_radius,
-                          n_hist, n_ori, lam_desc);
-    __syncthreads();
-    for (int k = tid; k < n_out; k += nt) out_p[k] = column_sum(hist, k, nt);
-  }
+  WarpScratch<Hist>* wsa = reinterpret_cast<WarpScratch<Hist>*>(warp_smem);
+  const int g = w / Hist::kParts, part = w % Hist::kParts;
+  float* red =
+      reinterpret_cast<float*>(wsa + kWarps) + g * Hist::kParts * n_out;
+  for (int p = g; p < np; p += kGroups)
+    descriptor_lane(wsa[w], red, hist, g, part, ln, th_p[p], fd, H, W,
+                    desc_radius, lam_desc, raw_l + (long long)p * n_out);
 }
 
-// Resident-tile form of the staged orientation kernel. Block p takes the
-// run of sorted lanes that starts at position p (first[p]) and ends before
-// run_end[p]; src[q] is the lane at sorted position q. Every lane of a run
-// has the same (frame, scale) and its centre in the same tile x tile
-// square. Rows of lanes that belong to no run (invalid lanes) are not
-// written: the wrapper hands in zeros.
-__global__ void resident_orientation_kernel(
-    const float* __restrict__ gi, const float* __restrict__ gj, int B, int S,
-    int H, int W, const uint8_t* __restrict__ first,
-    const int* __restrict__ run_end, const int* __restrict__ src,
-    const int* __restrict__ frame, const int* __restrict__ scale,
-    const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ sigma, int radius, int tile, int n_bins,
-    float lam, float* __restrict__ out) {
-  extern __shared__ float smem[];  // [n_bins][NT] columns, then gi, gj copies
-  __shared__ int box[4];
-  const int p = blockIdx.x;
-  if (!first[p]) return;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int end = run_end[p];
-  const int side = tile + 2 * radius;
-  float* hist = smem;
-  float* reg_i = smem + n_bins * nt;
-  float* reg_j = reg_i + side * side;
-
-  // Bounding box of the run's sample windows.
-  if (tid == 0) {
-    box[0] = H;
-    box[1] = -1;
-    box[2] = W;
-    box[3] = -1;
-  }
-  __syncthreads();
-  for (int q = p + tid; q < end; q += nt) {
-    const Lane ln = lane_of(src[q], B, S, H, W, frame, scale, x, y, sigma);
-    const Window wd = orientation_window(ln, H, W, radius, lam);
-    atomicMin(&box[0], wd.u0);
-    atomicMax(&box[1], wd.u1);
-    atomicMin(&box[2], wd.v0);
-    atomicMax(&box[3], wd.v1);
-  }
-  __syncthreads();
-  const int r0 = box[0], c0 = box[2];
-  const int rows = box[1] - r0 + 1, pitch = box[3] - c0 + 1;
-  if (rows > side || pitch > side) {
-    // The run was not laid out with this tile: refuse loudly rather than
-    // write past the copy.
-    for (int q = p; q < end; ++q)
-      for (int k = tid; k < n_bins; k += nt)
-        out[(long long)src[q] * n_bins + k] = nanf("");
-    return;
-  }
-  const Lane l0 = lane_of(src[p], B, S, H, W, frame, scale, x, y, sigma);
-  const Field plane = plane_field(l0, gi, gj, S, H, W);
-  for (int i = tid; i < rows * pitch; i += nt) {
-    const int o = (r0 + i / pitch) * W + (c0 + i % pitch);
-    reg_i[i] = plane.gi[o];
-    reg_j[i] = plane.gj[o];
-  }
-  __syncthreads();
-  const Field fd{reg_i, reg_j, pitch, r0, c0};
-
-  for (int q = p; q < end; ++q) {
-    const int l = src[q];
-    const Lane ln = lane_of(l, B, S, H, W, frame, scale, x, y, sigma);
-    for (int k = 0; k < n_bins; ++k) hist[k * nt + tid] = 0.f;
-    orientation_accumulate(hist, tid, nt, ln, fd, H, W, radius, n_bins, lam);
-    __syncthreads();
-    float* out_l = out + (long long)l * n_bins;
-    for (int k = tid; k < n_bins; k += nt) out_l[k] = column_sum(hist, k, nt);
-    __syncthreads();  // the sums are read before the next lane zeroes them
-  }
-}
-
-// --- Tile layout of the resident descriptor form: a counting sort ----------
+// --- Tile layout of the resident forms: a counting sort ------------------
 //
 // key(l) = (frame, scale, row tile, column tile) of lane l's clamped rounded
 // centre, n_tiles for an invalid lane. count[key] and each lane's rank in
@@ -890,11 +824,126 @@ __device__ __forceinline__ void copy_async_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Resident-tile form of the staged descriptor kernel. A persistent grid:
-// each block takes the next run (runs[1] counts the runs handed out,
-// heads[] holds their first sorted positions), copies the bounding box of
-// its lanes' windows into shared memory, and its warps take the run's
-// lanes in turn, each with descriptor_warp reading gi/gj from the copy.
+// --- Resident-tile forms: a persistent grid over the tile runs ---------------
+
+// The run a persistent resident block holds: sorted positions p .. end - 1,
+// and the bounding box of its lanes' windows, rows r0 .. r0 + rows - 1 and
+// columns c0 .. c0 + pitch - 1 of their plane. p < 0: no run is left.
+struct Run {
+  int p, end, r0, c0, rows, pitch;
+};
+
+// Hands the calling block its next run. runs[1] counts the runs handed out,
+// heads[] holds their first sorted positions, run_end[] their ends, src[]
+// the lane at each sorted position; window(l) is lane l's sample window;
+// sh is 5 ints of the block's shared memory. Every thread calls it.
+template <class WindowOf>
+__device__ __forceinline__ Run next_run(int* sh, const int* heads, int* runs,
+                                        const int* run_end, const int* src,
+                                        int H, int W, WindowOf window) {
+  if (threadIdx.x == 0) {
+    const int r = atomicAdd(&runs[1], 1);
+    sh[0] = r < runs[0] ? heads[r] : -1;
+    sh[1] = H;
+    sh[2] = -1;
+    sh[3] = W;
+    sh[4] = -1;
+  }
+  __syncthreads();
+  Run run{sh[0], 0, 0, 0, 0, 0};
+  if (run.p < 0) return run;
+  run.end = run_end[run.p];
+  for (int q = run.p + threadIdx.x; q < run.end; q += blockDim.x) {
+    const Window wd = window(src[q]);
+    atomicMin(&sh[1], wd.u0);
+    atomicMax(&sh[2], wd.u1);
+    atomicMin(&sh[3], wd.v0);
+    atomicMax(&sh[4], wd.v1);
+  }
+  __syncthreads();
+  run.r0 = sh[1];
+  run.rows = sh[2] - sh[1] + 1;
+  run.c0 = sh[3];
+  run.pitch = sh[4] - sh[3] + 1;
+  return run;
+}
+
+// Copies the run's box of `plane` (row pitch W) into reg_i / reg_j by
+// cp.async, waits, and returns the copy as a Field (after a barrier).
+__device__ __forceinline__ Field copy_run(const Run& run, const Field& plane,
+                                          int W, float* reg_i, float* reg_j) {
+  for (int i = threadIdx.x; i < run.rows * run.pitch; i += blockDim.x) {
+    const int o = (run.r0 + i / run.pitch) * W + (run.c0 + i % run.pitch);
+    copy_async4(reg_i + i, plane.gi + o);
+    copy_async4(reg_j + i, plane.gj + o);
+  }
+  copy_async_wait();
+  __syncthreads();
+  return Field{reg_i, reg_j, run.pitch, run.r0, run.c0};
+}
+
+// A run whose box exceeds the copy was not laid out with this tile: its
+// lanes' rows (width values each) become NaN rather than be read past the
+// copy.
+__device__ __forceinline__ void refuse_run(const Run& run, const int* src,
+                                           int width, float* out) {
+  for (int q = run.p; q < run.end; ++q)
+    for (int k = threadIdx.x; k < width; k += blockDim.x)
+      out[(long long)src[q] * width + k] = nanf("");
+}
+
+// Resident-tile form of the staged orientation kernel: each block of
+// kOriThreads threads takes runs with next_run and computes the run's
+// lanes one after another from the copy, with the staged kernel's columns
+// and thread order. Rows of lanes in no run are not written: the wrapper
+// hands in zeros.
+__global__ void __launch_bounds__(kOriThreads) resident_orientation_kernel(
+    const float* __restrict__ gi, const float* __restrict__ gj, int B, int S,
+    int H, int W, const int* __restrict__ heads, int* __restrict__ runs,
+    const int* __restrict__ run_end, const int* __restrict__ src,
+    const int* __restrict__ frame, const int* __restrict__ scale,
+    const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ sigma, int radius, int tile, int n_bins,
+    float lam, float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];  // columns, then gi, gj copies
+  __shared__ int sh[5];
+  const int tid = threadIdx.x;
+  const int side = tile + 2 * radius;
+  float* cols = smem;  // [n_bins][kOriThreads]
+  float* reg_i = smem + n_bins * kOriThreads;
+  float* reg_j = reg_i + side * side;
+  const auto lane = [&](int l) {
+    return lane_of(l, B, S, H, W, frame, scale, x, y, sigma);
+  };
+  for (;;) {
+    const Run run = next_run(sh, heads, runs, run_end, src, H, W, [&](int l) {
+      return orientation_window(lane(l), H, W, radius, lam);
+    });
+    if (run.p < 0) return;
+    if (run.rows > side || run.pitch > side) {
+      refuse_run(run, src, n_bins, out);
+    } else {
+      const Field fd = copy_run(
+          run, plane_field(lane(src[run.p]), gi, gj, S, H, W), W, reg_i, reg_j);
+      for (int q = run.p; q < run.end; ++q) {
+        const int l = src[q];
+        for (int k = 0; k < n_bins; ++k) cols[k * kOriThreads + tid] = 0.f;
+        orientation_accumulate(cols, tid, kOriThreads, lane(l), fd, H, W,
+                               radius, n_bins, lam);
+        __syncthreads();
+        float* out_l = out + (long long)l * n_bins;
+        for (int k = tid; k < n_bins; k += kOriThreads)
+          out_l[k] = column_sum(cols, k, kOriThreads);
+        __syncthreads();  // the sums are read before the next lane zeroes them
+      }
+    }
+    __syncthreads();  // the copy and sh are done with before the next run
+  }
+}
+
+// Resident-tile form of the staged descriptor kernel: each block takes runs
+// with next_run, and its warps take the run's lanes in turn (Hist::kParts
+// warps a lane), each with descriptor_warp reading gi/gj from the copy.
 // Rows of lanes in no run are not written: the wrapper hands in zeros.
 template <class Hist>
 __global__ void resident_descriptor_kernel(
@@ -907,8 +956,7 @@ __global__ void resident_descriptor_kernel(
     int radius, int tile, int n_hist, int n_ori, float lam,
     float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char warp_smem[];
-  __shared__ int box[4];
-  __shared__ int run_p;
+  __shared__ int sh[5];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int w = tid >> 5, nw = nt >> 5;
   const int side = tile + 2 * radius;
@@ -920,55 +968,26 @@ __global__ void resident_descriptor_kernel(
   float* red = reinterpret_cast<float*>(wsa + nw) + g * Hist::kParts * n_out;
   float* reg_i = reinterpret_cast<float*>(warp_smem + lane_smem<Hist>(nw));
   float* reg_j = reg_i + side * side;
+  const auto lane = [&](int l) {
+    return lane_of(l, B, S, H, W, frame, scale, x, y, sigma);
+  };
   for (;;) {
-    if (tid == 0) {
-      const int r = atomicAdd(&runs[1], 1);
-      run_p = r < runs[0] ? heads[r] : -1;
-      box[0] = H;
-      box[1] = -1;
-      box[2] = W;
-      box[3] = -1;
-    }
-    __syncthreads();
-    const int p = run_p;
-    if (p < 0) return;
-    const int end = run_end[p];
-    for (int q = p + tid; q < end; q += nt) {
-      const Lane ln = lane_of(src[q], B, S, H, W, frame, scale, x, y, sigma);
-      const Window wd = descriptor_window(ln, H, W, radius, hist.n_hist(), lam);
-      atomicMin(&box[0], wd.u0);
-      atomicMax(&box[1], wd.u1);
-      atomicMin(&box[2], wd.v0);
-      atomicMax(&box[3], wd.v1);
-    }
-    __syncthreads();
-    const int r0 = box[0], c0 = box[2];
-    const int rows = box[1] - r0 + 1, pitch = box[3] - c0 + 1;
-    if (rows > side || pitch > side) {
-      // The run was not laid out with this tile: refuse loudly rather than
-      // write past the copy.
-      for (int q = p; q < end; ++q)
-        for (int k = tid; k < n_out; k += nt)
-          out[(long long)src[q] * n_out + k] = nanf("");
+    const Run run = next_run(sh, heads, runs, run_end, src, H, W, [&](int l) {
+      return descriptor_window(lane(l), H, W, radius, hist.n_hist(), lam);
+    });
+    if (run.p < 0) return;
+    if (run.rows > side || run.pitch > side) {
+      refuse_run(run, src, n_out, out);
     } else {
-      const Lane l0 = lane_of(src[p], B, S, H, W, frame, scale, x, y, sigma);
-      const Field plane = plane_field(l0, gi, gj, S, H, W);
-      for (int i = tid; i < rows * pitch; i += nt) {
-        const int o = (r0 + i / pitch) * W + (c0 + i % pitch);
-        copy_async4(reg_i + i, plane.gi + o);
-        copy_async4(reg_j + i, plane.gj + o);
-      }
-      copy_async_wait();
-      __syncthreads();
-      const Field fd{reg_i, reg_j, pitch, r0, c0};
-      for (int q = p + g; q < end; q += groups) {
+      const Field fd = copy_run(
+          run, plane_field(lane(src[run.p]), gi, gj, S, H, W), W, reg_i, reg_j);
+      for (int q = run.p + g; q < run.end; q += groups) {
         const int l = src[q];
-        const Lane ln = lane_of(l, B, S, H, W, frame, scale, x, y, sigma);
-        descriptor_lane(wsa[w], red, hist, g, part, ln, theta[l], fd, H, W,
-                        radius, lam, out + (long long)l * n_out);
+        descriptor_lane(wsa[w], red, hist, g, part, lane(l), theta[l], fd, H,
+                        W, radius, lam, out + (long long)l * n_out);
       }
     }
-    __syncthreads();  // the copy and run_p are done with before the next run
+    __syncthreads();  // the copy and sh are done with before the next run
   }
 }
 
@@ -997,8 +1016,33 @@ int launch_descriptor(const float* gi, const float* gj, int B, int S, int H,
   return (int)cudaGetLastError();
 }
 
-// A resident block takes one lane of Hist48 at a time (its kParts warps)
-// and four lanes of HistAny, fewer where the region leaves no room.
+// Launches a resident-tile kernel as a persistent grid (SMs x the blocks of
+// `threads` threads and `bytes` of dynamic shared memory that an SM holds),
+// after resetting runs[1] so that the runs are handed out from the first.
+template <class Kernel, class... Args>
+int launch_resident(Kernel kernel, int threads, long long bytes, int* runs,
+                    cudaStream_t stream, Args... args) {
+  if (bytes > kMaxDynamicShared) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(runs + 1, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                      (size_t)bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<sms * per_sm, threads, (size_t)bytes, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// A resident descriptor block takes one lane of Hist48 at a time (its
+// kParts warps) and four lanes of HistAny, fewer where the region leaves
+// no room.
 template <class Hist>
 int launch_resident_descriptor(const float* gi, const float* gj, int B, int S,
                                int H, int W, const int* heads, int* runs,
@@ -1016,24 +1060,11 @@ int launch_resident_descriptor(const float* gi, const float* gj, int B, int S,
   while (warps > Hist::kParts &&
          region + lane_smem<Hist>(warps) > kMaxDynamicShared)
     warps -= Hist::kParts;
-  const long long bytes = region + lane_smem<Hist>(warps);
-  if (bytes > kMaxDynamicShared) return (int)cudaErrorInvalidValue;
-  auto kernel = resident_descriptor_kernel<Hist>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, warps * 32, (size_t)bytes);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  kernel<<<sms * per_sm, warps * 32, (size_t)bytes, stream>>>(
-      gi, gj, B, S, H, W, heads, runs, run_end, src, frame, scale, x, y, sigma,
-      theta, radius, tile, n_hist, n_ori, lam, out);
-  return (int)cudaGetLastError();
+  return launch_resident(resident_descriptor_kernel<Hist>, warps * 32,
+                         region + lane_smem<Hist>(warps), runs, stream, gi, gj,
+                         B, S, H, W, heads, runs, run_end, src, frame, scale, x,
+                         y, sigma, theta, radius, tile, n_hist, n_ori, lam,
+                         out);
 }
 
 bool shape48(int n_hist, int n_ori) { return n_hist == 4 && n_ori == 8; }
@@ -1078,6 +1109,8 @@ extern "C" int descriptor_hist(const float* gi, const float* gj, int B,
   return (int)cudaErrorInvalidValue;
 }
 
+// Fused form: one block per keypoint lane, of the staged descriptor
+// block's shape for (n_hist, n_ori).
 extern "C" int orient_desc(const float* gi, const float* gj, int B, int S,
                            int H, int W, int L, const uint8_t* valid,
                            const int* frame, const int* scale, const float* x,
@@ -1087,49 +1120,51 @@ extern "C" int orient_desc(const float* gi, const float* gj, int B, int S,
                            int n_hist, int n_ori, float lam_desc, float* raw,
                            float* theta, uint8_t* ori_valid,
                            cudaStream_t stream) {
-  if (n_hist > kMaxHist || n_ori > kMaxOri || n_bins > kMaxBins ||
-      max_ori > kMaxPeaks || max_ori < 1)
+  const bool k48 = shape48(n_hist, n_ori);
+  if (!shape_ok(n_hist, n_ori) || n_bins < 1 || n_bins > kMaxBins ||
+      max_ori < 1 || max_ori > kMaxPeaks)
     return (int)cudaErrorInvalidValue;
-  const int nt = 64;
-  const int n_out = n_hist * n_hist * n_ori;
-  const int cols = n_out > n_bins ? n_out : n_bins;
+  const auto kernel =
+      k48 ? orient_desc_kernel<Hist48> : orient_desc_kernel<HistAny>;
+  const int warps = k48 ? staged_warps<Hist48>() : staged_warps<HistAny>();
+  const int scratch =
+      k48 ? lane_smem<Hist48>(warps) : lane_smem<HistAny>(warps);
+  const int cols = kOriThreads * n_bins * (int)sizeof(float);
+  const int bytes = cols > scratch ? cols : scratch;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
   if (L > 0)
-    orient_desc_kernel<<<L, nt, cols * nt * sizeof(float), stream>>>(
+    kernel<<<L, warps * 32, bytes, stream>>>(
         gi, gj, B, S, H, W, valid, frame, scale, x, y, sigma, ori_radius,
         n_bins, lam_ori, smooth_iters, peak_thr, max_ori, desc_radius, n_hist,
         n_ori, lam_desc, raw, theta, ori_valid);
   return (int)cudaGetLastError();
 }
 
-// Resident orientation form: `first`, `run_end`, `src` are the [L] tile
-// layout of the lanes (see resident_orientation_kernel); `out` must be
-// zeroed by the caller. The block size is the staged kernel's, so the
-// result equals its.
+// Resident orientation form over a tile_runs layout made with the same
+// tile; `out` must be zeroed by the caller. The block size is the staged
+// kernel's, so the result equals its.
 extern "C" int orientation_hist_banded(
-    const float* gi, const float* gj, int B, int S, int H, int W, int L,
-    const uint8_t* first, const int* run_end, const int* src, const int* frame,
-    const int* scale, const float* x, const float* y, const float* sigma,
-    int radius, int tile, int n_bins, float lam, float* out,
-    cudaStream_t stream) {
-  const int nt = 128;
-  if (tile < 1 || radius < 0) return (int)cudaErrorInvalidValue;
+    const float* gi, const float* gj, int B, int S, int H, int W,
+    const int* heads, int* runs, const int* run_end, const int* src,
+    const int* frame, const int* scale, const float* x, const float* y,
+    const float* sigma, int radius, int tile, int n_bins, float lam,
+    float* out, cudaStream_t stream) {
+  if (tile < 1 || radius < 0 || n_bins < 1) return (int)cudaErrorInvalidValue;
   const long long side = (long long)tile + 2 * radius;
-  const long long bytes =
-      ((long long)n_bins * nt + 2 * side * side) * (long long)sizeof(float);
-  if (bytes > kMaxDynamicShared) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      resident_orientation_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  if (L > 0)
-    resident_orientation_kernel<<<L, nt, (size_t)bytes, stream>>>(
-        gi, gj, B, S, H, W, first, run_end, src, frame, scale, x, y, sigma,
-        radius, tile, n_bins, lam, out);
-  return (int)cudaGetLastError();
+  return launch_resident(
+      resident_orientation_kernel, kOriThreads,
+      ((long long)n_bins * kOriThreads + 2 * side * side) *
+          (long long)sizeof(float),
+      runs, stream, gi, gj, B, S, H, W, heads, runs, run_end, src, frame, scale,
+      x, y, sigma, radius, tile, n_bins, lam, out);
 }
 
-// Tile layout of [L] lanes for the resident descriptor form. Scratch:
-// count and start hold n_tiles + 1 ints (n_tiles = B S ceil(H / tile)
+// Tile layout of [L] lanes for the resident forms. Scratch: count and
+// start hold n_tiles + 1 ints (n_tiles = B S ceil(H / tile)
 // ceil(W / tile)), rank L. Out: src, first, run_end as tile_layout's (the
 // order inside a run aside), heads[0 .. runs[0]) the runs' first
 // positions, runs[1] = 0.
@@ -1171,9 +1206,6 @@ extern "C" int descriptor_hist_banded(
     const int* frame, const int* scale, const float* x, const float* y,
     const float* sigma, const float* theta, int radius, int tile, int n_hist,
     int n_ori, float lam, float* out, cudaStream_t stream) {
-  // Hand the runs out from the first again.
-  const cudaError_t err = cudaMemsetAsync(runs + 1, 0, sizeof(int), stream);
-  if (err != cudaSuccess) return (int)err;
   if (shape48(n_hist, n_ori))
     return launch_resident_descriptor<Hist48>(
         gi, gj, B, S, H, W, heads, runs, run_end, src, frame, scale, x, y,

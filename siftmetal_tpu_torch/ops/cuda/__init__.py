@@ -74,9 +74,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "orient_desc": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                         _I, _I, _F, _I, _F, _I, _I, _I, _I, _F, _P, _P, _P,
                         _P],
-        # gi, gj, B, S, H, W, L, first, run_end, src, frame, scale, x, y,
+        # gi, gj, B, S, H, W, heads, runs, run_end, src, frame, scale, x, y,
         # sigma, radius, tile, n_bins, lam, out, stream
-        "orientation_hist_banded": [_P, _P, _I, _I, _I, _I, _I] + [_P] * 8
+        "orientation_hist_banded": [_P, _P, _I, _I, _I, _I] + [_P] * 9
                                    + [_I, _I, _I, _F, _P, _P],
         # B, S, H, W, L, valid, frame, scale, x, y, tile, count, start, rank,
         # src, first, run_end, heads, runs, stream

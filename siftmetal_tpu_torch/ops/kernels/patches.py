@@ -12,7 +12,13 @@ with its ``frame`` index and ``valid`` flag (invalid lanes return zeros).
 smoothings -> peaks in BIN order, the first ``max_ori`` kept -> one raw
 descriptor per kept peak, in one launch. The staged path keeps the
 ``max_ori`` HIGHEST peaks instead; the two differ in order always and in
-the set only when a keypoint has more than ``max_ori`` peaks.
+the set only when a keypoint has more than ``max_ori`` peaks. Its block
+has the staged descriptor block's warps (8 for the (4, 8) shape): the
+staged orientation kernel's 128 columns give the raw histogram, one warp
+smooths it and picks the peaks (bins across its lanes, ranks by ballot),
+and the staged descriptor kernel's routine computes each kept peak, so
+the fused descriptor equals the staged kernel's at the same theta bit for
+bit.
 
 What the TPU kernels needed and these do not: 8/128-aligned window DMAs
 into padded fields, radius buckets, multi-keypoint lane packing, the
@@ -33,11 +39,10 @@ card the resident region is a 2-D tile of one (frame, scale) plane: every
 lane is keyed by the tile of its clamped rounded centre, and the lanes of
 one tile form a run whose windows' bounding box one block copies into
 shared memory; each lane's row goes straight to its lane (no un-permute
-pass) and equals the staged kernel's bit for bit. The orientation form
-orders the lanes with :func:`tile_layout` (one stable sort in PyTorch);
-the descriptor form with :func:`tile_runs` (a counting sort in three
-small CUDA kernels, the order inside a run free) and a persistent grid
-that takes the runs from a counter. Dropped TPU means: the sort-free
+pass) and equals the staged kernel's bit for bit. Both forms order the
+lanes with :func:`tile_runs` (a counting sort in three small CUDA
+kernels, the order inside a run free) and run a persistent grid that
+takes the runs from a counter. Dropped TPU means: the sort-free
 counting sort with one-hot gathers, the padding of each band to groups of
 8 lanes, the per-call lane chunks of the scalar prefetch, the radius
 buckets, and the ``rows >= band rows`` gate (a buffer-size condition:
@@ -92,6 +97,13 @@ def _lanes(scale, valid, frame):
     return valid, frame
 
 
+def _as_uint8(valid: torch.Tensor) -> torch.Tensor:
+    """A lane mask as the kernels read it: a bool mask is viewed as its
+    0/1 bytes (no copy), any other dtype converted."""
+    valid = valid.contiguous()
+    return valid.view(torch.uint8) if valid.dtype == torch.bool else valid.to(torch.uint8)
+
+
 def _kernel_args(fields: PatchFields, name, valid, frame, scale, *floats):
     """Checked, contiguous kernel operands (uint8 valid, int32 indices)."""
     require(fields.gi, name)
@@ -105,13 +117,17 @@ def _kernel_args(fields: PatchFields, name, valid, frame, scale, *floats):
         raise ValueError(f"{name}: lane arrays must be on the fields' device")
     ints = [t.to(torch.int32).contiguous() for t in (frame, scale)]
     fl = [require(t.to(torch.float32).contiguous(), name) for t in floats]
-    return [valid.to(torch.uint8).contiguous()] + ints + fl
+    return [_as_uint8(valid)] + ints + fl
 
 
-# Tile sides of the resident route (centres per side). A block holds
-# (tile + 2 radius)^2 pixels of gi and gj, plus the orientation form's
-# histogram columns (55 KB at radius 18) or the descriptor form's staging
-# (109 KB at radius 40: two blocks an SM; csrc/patches.cu).
+# Tile sides of the resident route (centres per side), each the fastest
+# of the sweep chip_smoke.py prints (for the orientation form, whose call
+# is host-bound, by the device time of kernel and layout together: side 32
+# spends the least, the layout's scan over fewer tiles outweighing a kernel
+# a little slower than at smaller sides). A block holds (tile + 2 radius)^2
+# pixels of gi and gj, plus the orientation form's histogram columns (18 KB;
+# radius 18) or the descriptor form's staging (35 KB; radius 40: 109 KB in
+# all at tile 16, two blocks an SM; csrc/patches.cu).
 ORI_TILE = 32
 DESC_TILE = 16
 
@@ -149,12 +165,11 @@ def tile_layout(shape, valid, frame, scale, x_oct, y_oct, tile: int) -> TileLayo
 
 
 class TileRuns(NamedTuple):
-    """The resident descriptor form's layout: ``src``, ``first`` and
-    ``run_end`` as :func:`tile_layout` gives them, and the first sorted
-    position of every run in ``heads[:runs[0]]``. From the CUDA layout the
-    indices are int32, the order of lanes inside a run and of the heads is
-    the atomics', and ``runs[1]`` is the kernel's counter of runs handed
-    out."""
+    """The resident forms' layout: ``src``, ``first`` and ``run_end`` as
+    :func:`tile_layout` gives them, and the first sorted position of every
+    run in ``heads[:runs[0]]``. From the CUDA layout the indices are int32,
+    the order of lanes inside a run and of the heads is the atomics', and
+    ``runs[1]`` is the kernel's counter of runs handed out."""
 
     src: torch.Tensor
     first: torch.Tensor
@@ -164,32 +179,38 @@ class TileRuns(NamedTuple):
 
 
 def tile_runs(shape, valid, frame, scale, x_oct, y_oct, tile: int) -> TileRuns:
-    """:func:`tile_layout` as the resident descriptor kernel takes it: on
-    a CUDA device a counting sort by tile key in three small kernels
-    (count with ranks, one-block exclusive scan, scatter) and no host
+    """:func:`tile_layout` as the resident kernels take it: on a CUDA
+    device a counting sort by tile key in three small kernels (count with
+    ranks, one-block exclusive scan, scatter) and no host
     synchronisation; on the CPU the plain layout and its run heads. Part
-    of the ``descriptor_hist_banded`` launch, which counts it."""
+    of the resident launch that uses it, which counts it."""
     if not use_kernel(x_oct, "tile_runs"):
         lay = tile_layout(shape, valid.bool(), frame, scale, x_oct, y_oct, tile)
         heads = torch.nonzero(lay.first).flatten()
         runs = torch.tensor([heads.numel(), 0], dtype=torch.int32)
         return TileRuns(*lay, heads, runs)
+    lanes = [_as_uint8(valid), frame.to(torch.int32).contiguous(),
+             scale.to(torch.int32).contiguous(),
+             require(x_oct.contiguous(), "tile_runs"), require(y_oct.contiguous(), "tile_runs")]
+    return _tile_runs_cuda(shape, lanes, tile, _cuda.stream_of(x_oct))
+
+
+def _tile_runs_cuda(shape, lanes, tile, stream) -> TileRuns:
+    """The CUDA layout of :func:`tile_runs` for lanes already in the
+    kernels' types: [valid uint8, frame int32, scale int32, x, y float32]."""
     b, s, h, w = shape
-    l = scale.shape[0]
+    l = lanes[0].shape[0]
     n_tiles = b * s * (-(-h // tile)) * (-(-w // tile))
-    dev = x_oct.device
+    dev = lanes[0].device
     ints = torch.empty((2 * (n_tiles + 1) + 4 * l + 2,), dtype=torch.int32, device=dev)
     count, start, rank, src, run_end, heads, runs = torch.split(
         ints, [n_tiles + 1, n_tiles + 1, l, l, l, l, 2])
     first = torch.empty((l,), dtype=torch.uint8, device=dev)
-    lanes = [valid.to(torch.uint8).contiguous(), frame.to(torch.int32).contiguous(),
-             scale.to(torch.int32).contiguous(),
-             require(x_oct.contiguous(), "tile_runs"), require(y_oct.contiguous(), "tile_runs")]
     _cuda.check(
         _cuda.library("patches").tile_runs(
             b, s, h, w, l, *(a.data_ptr() for a in lanes), tile,
             *(a.data_ptr() for a in (count, start, rank, src, first, run_end, heads, runs)),
-            _cuda.stream_of(x_oct),
+            stream,
         ),
         "tile_runs",
     )
@@ -210,6 +231,40 @@ def _resident_lanes(fields, name, tile, valid, frame, scale, floats, plain, kern
     return out
 
 
+def _resident_call(fields, name, tile, width, valid, frame, scale, floats, radius, *shape):
+    """Resident kernel ``name`` on CUDA fields over the :func:`tile_runs`
+    layout of its lanes: [L, width] rows, zeros for invalid lanes."""
+    valid, frame = _lanes(scale, valid, frame)
+    args = _kernel_args(fields, name, valid, frame, scale, *floats)
+    b, s, h, w = fields.gi.shape
+    stream = _cuda.stream_of(fields.gi)
+    lay = _tile_runs_cuda(fields.gi.shape, args[:5], tile, stream)
+    out = torch.zeros((scale.shape[0], width), dtype=torch.float32, device=fields.gi.device)
+    _cuda.check(
+        getattr(_cuda.library("patches"), name)(
+            fields.gi.data_ptr(), fields.gj.data_ptr(), b, s, h, w,
+            *(a.data_ptr() for a in (lay.heads, lay.runs, lay.run_end, lay.src) + tuple(args[1:])),
+            radius, tile, *shape, out.data_ptr(), stream,
+        ),
+        name,
+    )
+    LAUNCHES[name] += 1
+    return out
+
+
+def resident_orientation_lanes(
+    fields: PatchFields, scale, x_oct, y_oct, sigma_oct, config: SiftConfig,
+    valid, frame, tile: int = ORI_TILE,
+) -> torch.Tensor:
+    """``orientation_hist_lanes`` under ``use_band_patches`` on CUDA fields:
+    the tile layout (:func:`tile_runs`) and the resident kernel. Equal to
+    the staged kernel bit for bit."""
+    return _resident_call(
+        fields, "orientation_hist_banded", tile, config.n_orientation_bins, valid, frame,
+        scale, (x_oct, y_oct, sigma_oct), config.ori_patch_radius,
+        config.n_orientation_bins, float(config.orientation_lambda))
+
+
 def resident_descriptor_lanes(
     fields: PatchFields, scale, x_oct, y_oct, sigma_oct, theta, config: SiftConfig,
     valid, frame, tile: int = DESC_TILE,
@@ -217,49 +272,10 @@ def resident_descriptor_lanes(
     """``descriptor_lanes`` under ``use_band_patches`` on CUDA fields: the
     tile layout (:func:`tile_runs`) and the resident kernel. Equal to the
     staged kernel bit for bit."""
-    name = "descriptor_hist_banded"
-    valid, frame = _lanes(scale, valid, frame)
-    args = _kernel_args(fields, name, valid, frame, scale, x_oct, y_oct, sigma_oct, theta)
-    b, s, h, w = fields.gi.shape
-    lay = tile_runs(fields.gi.shape, *args[:3], args[3], args[4], tile)
-    out = torch.zeros((scale.shape[0], config.descriptor_length), dtype=torch.float32,
-                      device=fields.gi.device)
-    _cuda.check(
-        _cuda.library("patches").descriptor_hist_banded(
-            fields.gi.data_ptr(), fields.gj.data_ptr(), b, s, h, w,
-            *(a.data_ptr() for a in (lay.heads, lay.runs, lay.run_end, lay.src) + tuple(args[1:])),
-            config.desc_patch_radius, tile, config.n_histograms_per_axis,
-            config.n_descriptor_bins, float(config.descriptor_lambda), out.data_ptr(),
-            _cuda.stream_of(out),
-        ),
-        name,
-    )
-    LAUNCHES[name] += 1
-    return out
-
-
-def _resident_orientations(fields, valid, frame, scale, floats, config):
-    """The resident orientation kernel over :func:`tile_layout`'s order."""
-    name = "orientation_hist_banded"
-    lay = tile_layout(fields.gi.shape, valid, frame, scale, floats[0], floats[1], ORI_TILE)
-    args = _kernel_args(fields, name, valid, frame, scale, *floats)[1:]
-    b, s, h, w = fields.gi.shape
-    l = scale.shape[0]
-    out = torch.zeros((l, config.n_orientation_bins), dtype=torch.float32,
-                      device=fields.gi.device)
-    order = [lay.first.to(torch.uint8), lay.run_end.to(torch.int32),
-             lay.src.to(torch.int32)]
-    _cuda.check(
-        _cuda.library("patches").orientation_hist_banded(
-            fields.gi.data_ptr(), fields.gj.data_ptr(), b, s, h, w, l,
-            *(a.data_ptr() for a in order + args), config.ori_patch_radius, ORI_TILE,
-            config.n_orientation_bins, float(config.orientation_lambda),
-            out.data_ptr(), _cuda.stream_of(out),
-        ),
-        name,
-    )
-    LAUNCHES[name] += 1
-    return out
+    return _resident_call(
+        fields, "descriptor_hist_banded", tile, config.descriptor_length, valid, frame,
+        scale, (x_oct, y_oct, sigma_oct, theta), config.desc_patch_radius,
+        config.n_histograms_per_axis, config.n_descriptor_bins, float(config.descriptor_lambda))
 
 
 def orientation_hist_lanes(
@@ -280,7 +296,7 @@ def orientation_hist_lanes(
             fields, "orientation_hist_banded", ORI_TILE, valid, frame, scale, floats,
             lambda v, f, sc, x, y, sg: orientation_hist_plain(
                 fields.gi, fields.gj, f.long(), sc.long(), x, y, sg, v, config),
-            lambda: _resident_orientations(fields, valid, frame, scale, floats, config))
+            lambda: resident_orientation_lanes(fields, scale, *floats, config, valid, frame))
     if not use_kernel(fields.gi, "orientation_hist"):
         return orientation_hist_plain(
             fields.gi, fields.gj, frame.long(), scale.long(), x_oct, y_oct,

@@ -220,11 +220,12 @@ def test_tile_layout_against_numpy(name, tile):
 
 
 @pytest.mark.parametrize("name", sorted(LAYOUT_CASES))
-def test_tile_runs_on_cpu_is_tile_layout_with_its_heads(name):
+@pytest.mark.parametrize("tile", [KP.DESC_TILE, KP.ORI_TILE], ids=["desc_tile", "ori_tile"])
+def test_tile_runs_on_cpu_is_tile_layout_with_its_heads(name, tile):
     """``tile_runs`` on CPU tensors (the plain version of the resident
-    descriptor form's CUDA layout, which orders lanes inside a run freely)
-    is ``tile_layout`` itself, with ``heads[:runs[0]]`` the run starts and
-    the hand-out counter at 0."""
+    forms' CUDA layout, which orders lanes inside a run freely) is
+    ``tile_layout`` itself, with ``heads[:runs[0]]`` the run starts and the
+    hand-out counter at 0, at each resident form's tile."""
     case = LAYOUT_CASES[name]
     rng = np.random.default_rng(case["seed"] + 100)
     shape = (2, 3, 70, 101)
@@ -234,8 +235,8 @@ def test_tile_runs_on_cpu_is_tile_layout_with_its_heads(name):
             _t(rng.integers(1, 4, n).astype(np.int32)),
             _t(rng.uniform(-0.4, 69.4, n).astype(np.float32)),
             _t(rng.uniform(-0.4, 100.4, n).astype(np.float32)))
-    lay = KP.tile_layout(shape, *args, KP.DESC_TILE)
-    runs = KP.tile_runs(shape, *args, KP.DESC_TILE)
+    lay = KP.tile_layout(shape, *args, tile)
+    runs = KP.tile_runs(shape, *args, tile)
     for a, b in zip(runs[:3], lay):
         assert torch.equal(a, b)
     starts = torch.nonzero(lay.first).flatten()

@@ -369,6 +369,130 @@ def test_fused_describe_kernel_matches_plain(cuda_dev):
     assert torch.equal(raw, r2) and torch.equal(th, t2) and torch.equal(ov, o2)
 
 
+def _fused_inputs(rng, cfg, dev, b=2, h=120, w=170, n=160):
+    gauss = _t(rng.uniform(0, 1, (b, cfg.n_gaussians_per_octave, h, w)).astype(np.float32), dev)
+    fields = prepare_patch_fields(gauss, cfg)
+    x, y, sig, valid = _border_lanes(rng, h, w, n, dev)
+    scale = _t(rng.integers(1, 4, n).astype(np.int32), dev)
+    frame = _t(rng.integers(0, b, n).astype(np.int32), dev)
+    return fields, (scale, x, y, sig), valid, frame
+
+
+def _staged_at_fused_theta(fields, lanes, cfg, valid, frame, th, ov):
+    """The staged descriptor kernel on the keypoint lanes repeated max_ori
+    times, at the fused kernel's theta and peak validity."""
+    rep = lambda a: a.repeat_interleave(th.shape[1])
+    scale, x, y, sig = lanes
+    d = descriptor_lanes(fields, rep(scale), rep(x), rep(y), rep(sig), th.reshape(-1), cfg,
+                         valid=ov.reshape(-1), frame=rep(frame))
+    return d.reshape(th.shape + (-1,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 8), (3, 6), (2, 12)])
+def test_fused_describe_equals_staged_at_its_theta(cuda_dev, shape):
+    """The fused kernel's descriptors equal the staged descriptor kernel's
+    at the fused theta bit for bit (the same warp routine), on border
+    lanes, lanes whose reach ``desc_patch_radius`` cuts and invalid lanes
+    between valid ones, for the (4, 8) instance and the generic one; its
+    theta and peaks agree with the plain version (the gates of
+    test_fused_describe_kernel_matches_plain); two launches are equal."""
+    cfg = SiftConfig(n_histograms_per_axis=shape[0], n_descriptor_bins=shape[1])
+    rng = np.random.default_rng(31)
+    fields, lanes, valid, frame = _fused_inputs(rng, cfg, cuda_dev)
+    raw, th, ov = orient_desc_lanes(fields, *lanes, cfg, valid=valid, frame=frame)
+    assert raw.shape == (valid.shape[0], 4, cfg.descriptor_length)
+    assert torch.equal(raw, _staged_at_fused_theta(fields, lanes, cfg, valid, frame, th, ov))
+    assert not ov[~valid].any() and (raw[~ov] == 0).all() and (th[~ov] == 0).all()
+    assert ov[valid].any(1).float().mean().item() > 0.99   # valid lanes have peaks
+    rr, tr, ovr = orient_desc_lanes_plain(fields, *lanes, cfg, valid, frame)
+    scale, x, y, sig = lanes
+    hist = PDS._smooth_circular(
+        PDS.orientation_hist_plain(fields.gi, fields.gj, frame.long(), scale.long(), x, y, sig,
+                                   valid, cfg), cfg.orientation_smoothing_iterations)
+    same = (ov == ovr).all(1)
+    assert same.float().mean().item() >= 0.95
+    tol = 1e-5 * torch.clamp(0.02 * PDS.peak_conditioning(hist, cfg), min=1.0)
+    assert ((th - tr).abs()[same] <= tol[same]).all()
+    a, r = raw[same].reshape(-1, raw.shape[-1]), rr[same].reshape(-1, raw.shape[-1])
+    assert ((a - r).abs().amax(1) <= 1e-4 * r.abs().amax(1) + 1e-7).all()
+    r2, t2, o2 = orient_desc_lanes(fields, *lanes, cfg, valid=valid, frame=frame)
+    assert torch.equal(raw, r2) and torch.equal(th, t2) and torch.equal(ov, o2)
+
+
+@pytest.mark.cuda
+def test_fused_describe_keeps_the_first_peaks_in_bin_order(cuda_dev):
+    """With more peaks than ``max_orientations_per_keypoint``, the fused
+    kernel keeps the first ones in bin order: at max_ori 2 its outputs
+    are the first two columns of its max_ori 8 outputs, bit for bit, and
+    the peak sets agree with the plain bin-order rule."""
+    few = SiftConfig(orientation_peak_threshold=0.4, orientation_smoothing_iterations=2,
+                     max_orientations_per_keypoint=2)
+    many = SiftConfig(orientation_peak_threshold=0.4, orientation_smoothing_iterations=2,
+                      max_orientations_per_keypoint=8)
+    rng = np.random.default_rng(5)
+    fields, lanes, valid, frame = _fused_inputs(rng, few, cuda_dev)
+    raw2, th2, ov2 = orient_desc_lanes(fields, *lanes, few, valid=valid, frame=frame)
+    raw8, th8, ov8 = orient_desc_lanes(fields, *lanes, many, valid=valid, frame=frame)
+    assert int((ov8.sum(1) > 2).sum()) >= 10          # lanes with more peaks than kept
+    assert torch.equal(th2, th8[:, :2]) and torch.equal(ov2, ov8[:, :2])
+    assert torch.equal(raw2, raw8[:, :2])
+    assert torch.equal(ov2.sum(1), ov8.sum(1).clamp(max=2))
+    # Bin order: ascending bins, so theta ascends once wrapped to [0, 2 pi).
+    wrapped = torch.remainder(th8, 2 * np.pi)
+    for l in torch.nonzero(ov8.sum(1) > 2).flatten().tolist():
+        k = int(ov8[l].sum())
+        assert bool((wrapped[l, 1:k] > wrapped[l, :k - 1]).all()), l
+    _, tp, ovp = orient_desc_lanes_plain(fields, *lanes, few, valid, frame)
+    assert (ov2 == ovp).all(1).float().mean().item() >= 0.95
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [8, 16, 32])
+def test_resident_orientation_through_tile_runs_equals_staged(cuda_dev, tile):
+    """The resident orientation kernel over the CUDA counting-sort layout,
+    at several tile sides, equals the staged kernel bit for bit on border
+    lanes, lanes whose reach the radius cuts, clustered lanes that share
+    tiles and invalid lanes between valid ones."""
+    from siftmetal_tpu_torch.ops.kernels.patches import resident_orientation_lanes
+
+    rng = np.random.default_rng(40 + tile)
+    fields, (scale, x, y, sig), valid, frame = _fused_inputs(rng, CFG, cuda_dev, n=400)
+    near = torch.arange(400, device=cuda_dev) % 2 == 1     # half the lanes in 6 clusters
+    c = _t(rng.uniform([5, 5], [115, 165], (6, 2)).astype(np.float32), cuda_dev)
+    pick = _t(rng.integers(0, 6, 400), cuda_dev)
+    x = torch.where(near & valid, c[pick, 0] + _t(rng.normal(0, 2, 400).astype(np.float32), cuda_dev), x)
+    y = torch.where(near & valid, c[pick, 1] + _t(rng.normal(0, 2, 400).astype(np.float32), cuda_dev), y)
+    n0 = LAUNCHES["orientation_hist_banded"]
+    got = resident_orientation_lanes(fields, scale, x, y, sig, CFG, valid, frame, tile=tile)
+    assert LAUNCHES["orientation_hist_banded"] == n0 + 1
+    staged = orientation_hist_lanes(fields, scale, x, y, sig, CFG, valid=valid, frame=frame)
+    assert torch.equal(got, staged)
+    assert (got[~valid] == 0).all() and bool((got[valid].sum(1) > 0).all())
+
+
+@pytest.mark.cuda
+def test_resident_route_lays_out_lanes_on_the_card(cuda_dev, monkeypatch):
+    """Under ``use_band_patches`` on CUDA fields both resident kernels take
+    their layout from the CUDA counting sort: ``tile_layout`` (the
+    PyTorch sort of the CPU route) is never called."""
+    from siftmetal_tpu_torch.ops.kernels import patches as KP
+
+    def refuse(*a, **kw):
+        raise AssertionError("tile_layout called on CUDA fields")
+
+    monkeypatch.setattr(KP, "tile_layout", refuse)
+    band = SiftConfig(use_band_patches=True)
+    rng = np.random.default_rng(8)
+    fields, (scale, x, y, sig), valid, frame = _fused_inputs(rng, band, cuda_dev)
+    th = _t(rng.uniform(-3, 3, valid.shape[0]).astype(np.float32), cuda_dev)
+    n_o, n_d = LAUNCHES["orientation_hist_banded"], LAUNCHES["descriptor_hist_banded"]
+    orientation_hist_lanes(fields, scale, x, y, sig, band, valid=valid, frame=frame)
+    descriptor_lanes(fields, scale, x, y, sig, th, band, valid=valid, frame=frame)
+    assert LAUNCHES["orientation_hist_banded"] == n_o + 1
+    assert LAUNCHES["descriptor_hist_banded"] == n_d + 1
+
+
 @pytest.mark.cuda
 def test_wrappers_do_not_fall_back(cuda_dev, monkeypatch):
     """A wrapper given a CUDA tensor raises when its library cannot load;
@@ -389,9 +513,12 @@ def test_wrappers_do_not_fall_back(cuda_dev, monkeypatch):
                           emit_fields=False)
     fields = prepare_patch_fields(torch.zeros((1, 6, 32, 32), device=cuda_dev), CFG)
     one = lambda v, dt: torch.full((1,), v, dtype=dt, device=cuda_dev)
+    lane = (one(1, torch.int32), one(16.0, torch.float32), one(16.0, torch.float32),
+            one(1.5, torch.float32))
     with pytest.raises(RuntimeError, match="unavailable"):
-        orient_desc_lanes(fields, one(1, torch.int32), one(16.0, torch.float32),
-                          one(16.0, torch.float32), one(1.5, torch.float32), CFG)
+        orient_desc_lanes(fields, *lane, CFG)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        orientation_hist_lanes(fields, *lane, SiftConfig(use_band_patches=True))
 
 
 def _homography_scene(dev, n=512, n_out=200, pad=64):

@@ -182,24 +182,58 @@ def test_lean_tail_counts_budget_overflow():
 # --- fused orientation + descriptor -------------------------------------------
 
 
-def test_fused_describe_plain_matches_jax_staged():
+def _fused_lanes(rng, n, h, w, borders):
+    """Keypoint lanes on a 96 x 160 crop. Without ``borders``: interior
+    lanes and three near an edge. With: lanes on all four borders and the
+    four corners, and every third lane with a sigma (3.8-5) whose
+    descriptor reach ``desc_patch_radius`` cuts."""
+    scale = rng.integers(1, 4, n).astype(np.int32)
+    if not borders:
+        x = np.concatenate([rng.uniform(15, 80, n - 3), [1.3, 94.2, 40.0]])
+        y = np.concatenate([rng.uniform(15, 145, n - 3), [70.0, 80.0, 0.8]])
+        sig = rng.uniform(1.7, 3.4, n)
+    else:
+        x, y = rng.uniform(15, h - 15, n), rng.uniform(15, w - 15, n)
+        edge = np.arange(n) % 5
+        x[edge == 0] = rng.uniform(-0.4, 1.5, (edge == 0).sum())          # top
+        y[edge == 1] = rng.uniform(w - 2.5, w - 0.6, (edge == 1).sum())   # right
+        x[edge == 2] = rng.uniform(h - 2.5, h - 0.6, (edge == 2).sum())   # bottom
+        y[edge == 3] = rng.uniform(-0.4, 1.5, (edge == 3).sum())          # left
+        x[:4], y[:4] = [0.0, 0.0, h - 1.0, h - 1.0], [0.0, w - 1.0, 0.0, w - 1.0]
+        sig = rng.uniform(1.7, 3.4, n)
+        sig[np.arange(n) % 3 == 1] = rng.uniform(3.8, 5.0, (np.arange(n) % 3 == 1).sum())
+    f32 = lambda a: np.asarray(a, np.float32)
+    return scale, f32(x), f32(y), f32(sig)
+
+
+# Case -> (crop origin, seed, lanes, lanes on the borders with cut reach).
+FUSED_CASES = {
+    "interior": ((100, 200), 1, 40, False),
+    "borders_cut_reach": ((220, 40), 2, 45, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_fused_describe_plain_matches_jax_staged(case):
     """The fused stage's plain version (bin-order peaks) vs the JAX staged
     XLA reference (``orientation_hists_xla`` -> smoothing -> peaks by
     height -> ``descriptor_lanes``): the same peak set per keypoint (a
     keypoint with more peaks than MAX_ORI aside), theta to 1e-5 and
-    quantized descriptors within 1."""
+    quantized descriptors within 1, on interior lanes and on lanes at
+    every border whose reach the static radii cut."""
     from siftmetal_tpu.sift import describe as JDS
 
-    gray = _gray()[100:196, 200:360]
+    (r0, c0), seed, n, borders = FUSED_CASES[case]
+    gray = np.ascontiguousarray(_gray()[r0:r0 + 96, c0:c0 + 160])
     g = torch.from_numpy(gray[None])
     gauss = torch.stack([g] + [PC.blur(g, s) for s in (1.2, 1.6, 2.0, 2.6, 3.2)], 1)  # [1, 6, 96, 160]
-    rng = np.random.default_rng(1)
-    n = 40
-    scale = rng.integers(1, 4, n).astype(np.int32)
-    x = np.concatenate([rng.uniform(15, 80, n - 3), [1.3, 94.2, 40.0]]).astype(np.float32)
-    y = np.concatenate([rng.uniform(15, 145, n - 3), [70.0, 80.0, 0.8]]).astype(np.float32)
-    sig = rng.uniform(1.7, 3.4, n).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    scale, x, y, sig = _fused_lanes(rng, n, 96, 160, borders)
     valid = np.arange(n) % 9 != 4
+    if borders:
+        half = CFG.descriptor_lambda * (CFG.n_histograms_per_axis + 1) / CFG.n_histograms_per_axis
+        reach = np.ceil(np.sqrt(2.0) * half * sig + 0.5) + 1
+        assert (valid & (reach > CFG.desc_patch_radius)).sum() >= 10
     t = torch.from_numpy
     fields = prepare_patch_fields(gauss, CFG)
     raw, th, ov = orient_desc_lanes(fields, t(scale), t(x), t(y), t(sig), CFG, valid=t(valid))
