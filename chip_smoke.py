@@ -9,7 +9,10 @@ Phases, in order; any failure exits non-zero and prints no result:
     every CUDA source of the port with nvcc for sm_90a;
  2. kernels: each CUDA kernel against its plain PyTorch version on the
     same inputs, at the shapes the 640x480 batch-8 paths give it, with
-    its tolerance, its time (CUDA events) and its bound (fourteen rows;
+    its tolerance, its time (CUDA events) and its bound (sixteen rows;
+    blur_cascade and blur_cascade_bf16, one launch a small-octave cascade,
+    also against the five per-stage band launches they replace, bit for
+    bit, there and at the butterfly's cascade octaves;
     orientation_hist_banded and descriptor_hist_banded also against the
     staged kernels, bit for bit, each with its CUDA lane layout against
     tile_layout run by run and a sweep of its tile side; orient_desc's
@@ -258,8 +261,13 @@ def phase_kernels(peaks):
     rep.row["plain_ms"] = _time_ms(plain, 3)
     rep.bound(f4 * 2 * first3.numel(),
               _table_ops(b, *shapes[3], bx) + _table_ops(b, *shapes[3], by), peaks)
+    print(f"[kernel] band passes: {_ptxas_line('17band_tiles_kernelIffLb0')}", flush=True)
     rep.check(err)
     reports[rep.row["name"]] = rep
+
+    # --- the whole cascade of octave 3 in one launch ---------------------
+    _cascade_row(reports, peaks, first3, cfg, 3, False)
+    _cascade_shapes()
 
     # --- detection at octave 0 ---------------------------------------------
     rep = Report("detect_candidates", "siftmetal_tpu_torch/csrc/detect.cu",
@@ -363,6 +371,86 @@ def phase_kernels(peaks):
     _slice2_kernels(reports, peaks, gray, g0, d0, cd, fields, kpc, frame, ori_args, valid,
                     n_ori_samples)
     return reports
+
+
+def _cascade_row(reports, peaks, first, cfg, o, bf16):
+    """blur_cascade (or its bf16 chain) on octave ``o``'s first slice:
+    equal bit for bit to the per-stage route it replaces (five blur_stack
+    launches, a stack, a subtraction), and against its plain version (1e-5;
+    the bf16 chain as tests/test_torch_fast.py holds it: 1e-5 on all but 2%
+    of the samples, none beyond one bf16 ulp of the largest value)."""
+    import torch
+
+    from siftmetal_tpu_torch.ops.kernels import blur as KB
+    from siftmetal_tpu_torch.sift.pyramid import cascade_slices
+
+    name = "blur_cascade_bf16" if bf16 else "blur_cascade"
+    rep = Report(name, "siftmetal_tpu_torch/csrc/pyramid.cu", "siftmetal_tpu/ops/pallas/blur.py:34",
+                 1.0 if bf16 else 1e-5)
+    sig = cfg.incremental_sigmas(o)
+    b, h, w = first.shape
+    g, d = KB.blur_cascade(first, sig, bf16)
+
+    def per_step():
+        stack = torch.stack(cascade_slices(first, o, cfg), dim=1)
+        return stack, stack[:, 1:] - stack[:, :-1]
+
+    gs, ds = per_step()
+    _require(torch.equal(g, gs) and torch.equal(d, ds),
+             f"{name}: differs from the per-stage route (max {max(_max_err(g, gs), _max_err(d, ds)):.3e})")
+    gp, dp = KB.blur_cascade_plain(first, sig, bf16)
+    abs_err = max(_max_err(g, gp), _max_err(d, dp))
+    err = abs_err
+    if bf16:
+        share = max(float(((g - gp).abs() > 1e-5).float().mean()),
+                    float(((d - dp).abs() > 1e-5).float().mean()))
+        _require(share <= 0.02, f"{name}: {share:.4f} of the samples beyond 1e-5 of the plain version")
+        err = abs_err / (2.0 ** -8 * max(float(gp.abs().max()), 1.0))
+    rep.row["ms"] = _time_ms(lambda: KB.blur_cascade(first, sig, bf16), 20)
+    rep.row["plain_ms"] = _time_ms(lambda: KB.blur_cascade_plain(first, sig, bf16), 2)
+    steps_ms = _time_ms(per_step, 20)
+    tx, ty = KB.cascade_tables(tuple(float(r) for r in sig), h, w)
+    rep.bound(first.element_size() * first.numel() + 4.0 * (g.numel() + d.numel()),
+              _table_ops(b, h, w, tx) + _table_ops(b, h, w, ty) + d.numel(), peaks)
+    frag = "19blur_cascade_kernelI" + ("fLb1" if bf16 and first.dtype == torch.float32
+                                       else "13__nv_bfloat16Lb1" if bf16 else "fLb0")
+    print(f"[kernel] {name} at {b}x{h}x{w}: equal to the per-stage route bit for bit; that route "
+          f"(5 blur_stack + stack + DoG) {steps_ms:.4f} ms here; {_ptxas_line(frag)}", flush=True)
+    rep.check(err, abs_err if bf16 else None)
+    reports[name] = rep
+
+
+def _cascade_shapes():
+    """blur_cascade against the per-stage route, bit for bit, at the
+    butterfly's cascade octaves (parity: 170x256 down to 21x32) and on a
+    plane smaller than its radii, for both chains and both first-slice
+    types of the bf16 chain."""
+    import numpy as np
+    import torch
+
+    from siftmetal_tpu_torch.config import SiftConfig
+    from siftmetal_tpu_torch.ops.kernels import blur as KB
+    from siftmetal_tpu_torch.sift.pyramid import cascade_slices
+
+    rng = np.random.default_rng(5)
+    shapes = [(1, 170, 256), (1, 85, 128), (1, 42, 64), (1, 21, 32), (2, 7, 10)]
+    n = 0
+    for shape in shapes:
+        first = torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32)).to("cuda")
+        for cfg, f in ((SiftConfig(), first),
+                       (SiftConfig(pyramid_dtype="bfloat16"), first.to(torch.bfloat16)),
+                       (SiftConfig(pyramid_dtype="bfloat16"), first)):
+            bf16 = cfg.pyramid_dtype == "bfloat16"
+            for o in (2, 5):
+                g, d = KB.blur_cascade(f, cfg.incremental_sigmas(o), bf16)
+                ref = torch.stack(cascade_slices(f, o, cfg), dim=1)
+                _require(torch.equal(g, ref) and torch.equal(d, ref[:, 1:] - ref[:, :-1]),
+                         f"blur_cascade at {shape} ({f.dtype}, bf16 chain {bf16}, octave {o}) "
+                         f"differs from the per-stage route")
+                n += 1
+    print(f"[kernel] blur_cascade equal to the per-stage route bit for bit in {n} cases: "
+          f"{', '.join('x'.join(map(str, s)) for s in shapes)}, fp32 chain and bf16 chain "
+          f"(bf16 and fp32 first slice), the sigmas of octaves 2 and 5", flush=True)
 
 
 def _resident_kernels(reports, peaks, fields, cfg, ori, desc, ops):
@@ -734,6 +822,7 @@ def _slice2_kernels(reports, peaks, gray, g0, d0, cd, fields, kpc, frame, ori_ar
     rep.bound(f2 * first2.numel() + f4 * first2.numel(),
               _table_ops(b, *shapes[2], bx) + _table_ops(b, *shapes[2], by), peaks)
     add(rep, err)
+    _cascade_row(reports, peaks, first2, fast, 2, True)
 
 
 def _box_samples(x, y, rx, ry, valid, frame, scale, H, W, b, cfg):
@@ -785,8 +874,20 @@ def _rotated_samples(d_args, valid, H, W, cfg):
     return total
 
 
-PARITY_KERNELS = ("seed_octave", "octave_oneshot", "blur_stack", "detect_candidates",
+PARITY_KERNELS = ("seed_octave", "octave_oneshot", "blur_cascade", "detect_candidates",
                   "orientation_hist", "descriptor_hist")
+# Pyramid launches of one 640x480 extract_batch: fused seed, one-shot
+# octaves 1-2, one cascade launch each for octaves 3-6 (parity); fused
+# seed, one-shot octave 1, cascades of octaves 2-5 (fast preset).
+PARITY_PYRAMID = {"seed_octave": 1, "octave_oneshot": 2, "blur_cascade": 4, "blur_stack": 0}
+FAST_PYRAMID = {"seed_octave_bf16": 1, "octave_oneshot_bf16": 1, "blur_cascade_bf16": 4,
+                "blur_stack_bf16": 0, "blur_stack": 0, "blur_cascade": 0}
+
+
+def _require_launches(tag, launches, want):
+    got = {k: launches[k] for k in want}
+    _require(got == want, f"{tag}: pyramid launches {got}, expected {want}")
+    print(f"[{tag}] pyramid launches {json.dumps(got)}", flush=True)
 OVERFLOWS = ("overflow", "descriptor_overflow", "keypoint_overflow")
 
 
@@ -870,7 +971,8 @@ def phase_main_path(reports, smi_line):
 
     sift = SIFT(480, 640)
     x = _noise_frames(sift.device)
-    _, descs, ctr, _, _ = _drive("main", sift, x, PARITY_KERNELS, reports)
+    _, descs, ctr, launches, _ = _drive("main", sift, x, PARITY_KERNELS, reports)
+    _require_launches("main", launches, PARITY_PYRAMID)
     # Frame 0 alone gives frame 0's batched result.
     _, d1, c1 = sift.extract(x[0])
     _require(all(int(c1[k]) == ctr[k][0] for k in c1), "batched != single-frame counters")
@@ -890,8 +992,11 @@ def phase_main_path(reports, smi_line):
 
 def phase_fast_path(reports, parity_ctr, smi_line):
     """The fast-preset slice at full width: bf16 extraction of the 8 noise
-    frames, pairwise matching, a map beyond ``target_block``, and the
-    parity configuration under each variant switch."""
+    frames, pairwise matching, a map beyond ``target_block``, the parity
+    configuration under each variant switch, and the fast preset with its
+    direct pyramid routes off."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -911,12 +1016,13 @@ def phase_fast_path(reports, parity_ctr, smi_line):
             out.append((mt, geometry_score(mt, xy(i), xy(j))))
         return out
 
-    required = ("seed_octave_bf16", "octave_oneshot_bf16", "blur_stack_bf16",
+    required = ("seed_octave_bf16", "octave_oneshot_bf16", "blur_cascade_bf16",
                 "detect_candidates", "orientation_hist", "descriptor_hist")
     # Without the 2x oversampling a noise frame now and then has a row with
     # more soft extrema than the row has slots: counted in `overflow`.
-    _, descs, ctr, _, matched = _drive("fast", sift, x, required, reports, match_pairs,
-                                       may_overflow=True)
+    _, descs, ctr, fl, matched = _drive("fast", sift, x, required, reports, match_pairs,
+                                        may_overflow=True)
+    _require_launches("fast", fl, FAST_PYRAMID)
     nq = sift.config.max_descriptors
     for (i, j), (mt, score) in zip(pairs, matched):
         _require(mt.target_idx.shape == (nq,) and mt.target_idx.dtype == torch.int32,
@@ -987,7 +1093,7 @@ def phase_fast_path(reports, parity_ctr, smi_line):
     # --- the parity configuration under each variant switch ----------------
     variants = {
         "cascade": (SiftConfig(use_oneshot_pyramid=False, use_pallas_pyramid=True),
-                    ("octave_cascade", "blur_stack")),
+                    ("octave_cascade", "blur_stack", "blur_cascade")),
         "lean": (SiftConfig(detect_slot_fields=False), ("detect_candidates_lean",)),
         "fused": (SiftConfig(use_fused_describe=True), ("orient_desc",)),
     }
@@ -1024,9 +1130,17 @@ def phase_fast_path(reports, parity_ctr, smi_line):
               f"{tag} {t[0]:.3f}, default {t[1]:.3f}, {tag} {t[2]:.3f}, default {t[3]:.3f}; "
               f"descriptors {sum(vctr['n_descriptors'])} vs {sum(parity_ctr['n_descriptors'])} ({smi_line})",
               flush=True)
+    # The fast preset without its direct routes: the bf16 seed blur
+    # (blur_stack_bf16) and a bf16-chain cascade in every octave.
+    bare = SIFT(480, 640, config=dataclasses.replace(FAST_BF16_CONFIG, use_oneshot_pyramid=False))
+    _, _, _, bl, _ = _drive("fast_cascade", bare, x, ("blur_stack_bf16", "blur_cascade_bf16"),
+                            reports, may_overflow=True)
+    n_oct = bare.config.num_octaves(480, 640)
+    _require_launches("fast_cascade", bl, {"blur_stack_bf16": 1, "blur_cascade_bf16": n_oct,
+                                           "seed_octave_bf16": 0, "octave_oneshot_bf16": 0})
 
 
-PAIR_KERNELS = ("seed_octave", "octave_oneshot", "blur_stack", "detect_candidates",
+PAIR_KERNELS = ("seed_octave", "octave_oneshot", "blur_cascade", "detect_candidates",
                 "orientation_hist_banded", "descriptor_hist_banded")
 # Inlier share of the accepted matches that a warped view must reach, and
 # the share an unrelated frame must stay under.
@@ -1322,6 +1436,14 @@ def _profile(tag, fn):
             sums[form] = f"{sum(ms for ms, _ in hit):.3f} ms x{sum(c for _, c in hit)}"
     if sums:
         print(f"[profile {tag}] patch kernels: {json.dumps(sums)}", flush=True)
+    pyr = {}
+    for form, frag in {"band tiles": "band_tiles_kernel", "blur cascade": "blur_cascade_kernel",
+                       "fused cascade": "::cascade_kernel(", "band_x": "band_x_kernel",
+                       "band_y": "band_y_kernel"}.items():
+        hit = [v for k, v in per.items() if frag in k]
+        if hit:
+            pyr[form] = f"{sum(ms for ms, _ in hit):.3f} ms x{sum(c for _, c in hit)}"
+    print(f"[profile {tag}] pyramid kernels: {json.dumps(pyr)}", flush=True)
 
 
 def phase_ipol(smi_line):

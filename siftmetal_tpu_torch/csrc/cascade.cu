@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_facts.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -186,9 +188,9 @@ extern "C" int octave_cascade(const float* g0, int B, int H, int W,
   const int side = tile + 2 * total_radius;
   const size_t bytes = ((size_t)(2 * side + kBlock) * (side | 1) +
                         (size_t)n_stage * k_max) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      cascade_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
+  const int e = device_facts::allow_shared((const void*)cascade_kernel,
+                                           (long long)bytes);
+  if (e != 0) return e;
   dim3 grid((W + tile - 1) / tile, (H + tile - 1) / tile, B);
   cascade_kernel<<<grid, kThreads, bytes, stream>>>(
       g0, B, H, W, taps, radii, n_stage, k_max, total_radius, tile, gauss,

@@ -110,6 +110,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_facts.cuh"
+
 namespace {
 
 constexpr double kPi = 3.14159265358979323846;
@@ -1002,12 +1004,9 @@ int launch_descriptor(const float* gi, const float* gj, int B, int S, int H,
                       cudaStream_t stream) {
   constexpr int kWarps = staged_warps<Hist>(), kLanes = kWarps / Hist::kParts;
   const int bytes = lane_smem<Hist>(kWarps);
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        descriptor_kernel<Hist>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int err =
+      device_facts::allow_shared((const void*)descriptor_kernel<Hist>, bytes);
+  if (err != 0) return err;
   if (L > 0)
     descriptor_kernel<Hist>
         <<<(L + kLanes - 1) / kLanes, kWarps * 32, bytes,
@@ -1017,26 +1016,20 @@ int launch_descriptor(const float* gi, const float* gj, int B, int S, int H,
 }
 
 // Launches a resident-tile kernel as a persistent grid (SMs x the blocks of
-// `threads` threads and `bytes` of dynamic shared memory that an SM holds),
-// after resetting runs[1] so that the runs are handed out from the first.
+// `threads` threads and `bytes` of dynamic shared memory that an SM holds,
+// known once per device), after resetting runs[1] so that the runs are
+// handed out from the first.
 template <class Kernel, class... Args>
 int launch_resident(Kernel kernel, int threads, long long bytes, int* runs,
                     cudaStream_t stream, Args... args) {
   if (bytes > kMaxDynamicShared) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(runs + 1, 0, sizeof(int), stream);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                      (size_t)bytes);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  kernel<<<sms * per_sm, threads, (size_t)bytes, stream>>>(args...);
+  int grid = 0;
+  int err = device_facts::resident_grid((const void*)kernel, threads, bytes,
+                                        &grid);
+  if (err != 0) return err;
+  if ((err = (int)cudaMemsetAsync(runs + 1, 0, sizeof(int), stream)) != 0)
+    return err;
+  kernel<<<grid, threads, (size_t)bytes, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -1131,11 +1124,8 @@ extern "C" int orient_desc(const float* gi, const float* gj, int B, int S,
       k48 ? lane_smem<Hist48>(warps) : lane_smem<HistAny>(warps);
   const int cols = kOriThreads * n_bins * (int)sizeof(float);
   const int bytes = cols > scratch ? cols : scratch;
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int err = device_facts::allow_shared((const void*)kernel, bytes);
+  if (err != 0) return err;
   if (L > 0)
     kernel<<<L, warps * 32, bytes, stream>>>(
         gi, gj, B, S, H, W, valid, frame, scale, x, y, sigma, ori_radius,

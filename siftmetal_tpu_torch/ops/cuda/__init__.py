@@ -6,14 +6,19 @@ headers are compiled, so a build takes seconds. Nothing here runs at
 import time; the first launch of a kernel builds every library (one
 ``nvcc`` per source, all started together) into ``_build/`` next to the
 package, which ``.gitignore`` lists. A library is rebuilt when its source
-is newer.
+or a header of ``csrc/`` is newer, or when its nvcc command changed (a
+stamp of the command sits beside each library).
 
 Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` raises on a nonzero code.
+``cudaGetLastError()``; :func:`check` raises on a nonzero code. A wrapper
+launches inside :func:`launch_on`, which makes its tensor's device the
+current one (the C launchers read it for their per-device facts) and
+hands over that device's current stream.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import pathlib
@@ -38,13 +43,12 @@ EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"detect": ("-fmad=false",)}
 # C signatures: library -> {function: argtypes}; every function returns int.
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "pyramid": {
-        # in, in_bf16, B, H, W_in, start, taps, ks, S, K, W_out, out,
-        # out_bf16, stream
-        "band_x": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _I, _P],
-        # xs, xs_bf16, B, S, H_in, W, start, taps, ks, K, H_out, first,
-        # first_bf16, gauss, dog, stream
-        "band_y": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P,
-                   _P, _P],
+        # tables (the launch's int64 host table), in, in_bf16, B, H_in, W_in,
+        # S, H_out, W_out, first, first_bf16, gauss, dog, mid_bf16, stream
+        "band_tiles": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P],
+        # tables, first, first_bf16, bf16_chain, B, H, W, n_stage, gauss,
+        # dog, stream
+        "blur_cascade": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     },
     "detect": {
         # dog, B, S, H, W, soft_thr, edge_bound, slots, cand_col, slot_ok,
@@ -106,10 +110,33 @@ def _lib_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+def _command(nvcc: str, name: str, out: pathlib.Path) -> List[str]:
+    return [
+        nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        *EXTRA_FLAGS.get(name, ()), "-o", str(out), str(CSRC / f"{name}.cu"),
+    ]
+
+
+def _stamp(name: str) -> str:
+    """What a library's build depends on besides its sources: the nvcc
+    command with the output path left out."""
+    return " ".join(_command("nvcc", name, pathlib.Path("lib.so")))
+
+
+def _stamp_path(name: str) -> pathlib.Path:
+    return BUILD_DIR / f"lib{name}.cmd"
+
+
 def _stale(name: str) -> bool:
     lib = _lib_path(name)
-    src = CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    stamp = _stamp_path(name)
+    if not stamp.exists() or stamp.read_text() != _stamp(name):
+        return True
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def build_all() -> Dict[str, str]:
@@ -123,13 +150,9 @@ def build_all() -> Dict[str, str]:
     procs = {}
     for n in names:
         tmp = BUILD_DIR / f"lib{n}.so.tmp{os.getpid()}"
-        cmd = [
-            nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            *EXTRA_FLAGS.get(n, ()), "-o", str(tmp), str(CSRC / f"{n}.cu"),
-        ]
         procs[n] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            _command(nvcc, n, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
         ))
     logs, failed = {}, []
     for n, (tmp, p) in procs.items():
@@ -139,6 +162,7 @@ def build_all() -> Dict[str, str]:
             failed.append(n)
         else:
             os.replace(tmp, _lib_path(n))
+            _stamp_path(n).write_text(_stamp(n))
     if failed:
         raise RuntimeError(
             "nvcc failed for " + ", ".join(failed) + ":\n"
@@ -172,3 +196,13 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@contextlib.contextmanager
+def launch_on(t):
+    """Make ``t``'s device the current CUDA device for a launch and yield
+    its current stream handle; the previous device is restored after."""
+    import torch
+
+    with torch.cuda.device(t.device):
+        yield stream_of(t)

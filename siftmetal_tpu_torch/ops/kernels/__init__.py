@@ -4,7 +4,7 @@ Each wrapper runs its kernel's plain PyTorch version for a tensor on the
 CPU, launches its CUDA kernel for a tensor on a CUDA device (no fallback),
 and raises for any other device. ``LAUNCHES[name]`` counts the CUDA
 launches of wrapper ``name`` (the band wrappers count their bf16-input
-form under ``name_bf16``); it moves nowhere else, so a run can show
+form, and ``blur_cascade`` its bf16 chain, under ``name_bf16``); it moves nowhere else, so a run can show
 that its main path went through the kernels.
 """
 
@@ -29,6 +29,8 @@ LAUNCHES: Dict[str, int] = {
     "orient_desc": 0,
     "orientation_hist_banded": 0,
     "descriptor_hist_banded": 0,
+    "blur_cascade": 0,
+    "blur_cascade_bf16": 0,
 }
 
 

@@ -98,13 +98,13 @@ def octave_cascade(
     n_stage = len(radii)
     gauss = torch.empty((b, n_stage + 1, h, w), dtype=torch.float32, device=first.device)
     dog = torch.empty((b, n_stage, h, w), dtype=torch.float32, device=first.device)
-    lib = _cuda.library("cascade")
-    _cuda.check(
-        lib.octave_cascade(first.data_ptr(), b, h, w, dev_tabs[0].data_ptr(),
-                           dev_tabs[1].data_ptr(), n_stage, taps.shape[1],
-                           int(radii.sum()), tile, gauss.data_ptr(),
-                           dog.data_ptr(), _cuda.stream_of(first)),
-        "octave_cascade",
-    )
+    with _cuda.launch_on(first) as stream:
+        _cuda.check(
+            _cuda.library("cascade").octave_cascade(
+                first.data_ptr(), b, h, w, dev_tabs[0].data_ptr(),
+                dev_tabs[1].data_ptr(), n_stage, taps.shape[1], int(radii.sum()),
+                tile, gauss.data_ptr(), dog.data_ptr(), stream),
+            "octave_cascade",
+        )
     LAUNCHES["octave_cascade"] += 1
     return gauss, dog

@@ -160,24 +160,24 @@ def detect_candidates(
     ok = torch.empty(shape, dtype=torch.uint8, device=dev)
     counts = torch.zeros((3, b), dtype=torch.int32, device=dev)
     count_ptrs = [counts[k].data_ptr() for k in range(3)]
-    lib = _cuda.library("detect")
     f = edge = None
-    if emit_fields:
-        f = tuple(torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(4))
-        edge = torch.empty(shape, dtype=torch.uint8, device=dev)
-        r = edge_threshold
-        code = lib.detect_candidates(
-            dog.data_ptr(), b, s, h, w, float(soft_threshold),
-            float((r + 1.0) ** 2 / r), slots, cand.data_ptr(), ok.data_ptr(),
-            *(a.data_ptr() for a in f), edge.data_ptr(), *count_ptrs,
-            _cuda.stream_of(dog),
-        )
-        edge = edge.bool()
-    else:
-        code = lib.detect_candidates_lean(
-            dog.data_ptr(), b, s, h, w, float(soft_threshold), slots,
-            cand.data_ptr(), ok.data_ptr(), *count_ptrs, _cuda.stream_of(dog),
-        )
+    with _cuda.launch_on(dog) as stream:
+        lib = _cuda.library("detect")
+        if emit_fields:
+            f = tuple(torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(4))
+            edge = torch.empty(shape, dtype=torch.uint8, device=dev)
+            r = edge_threshold
+            code = lib.detect_candidates(
+                dog.data_ptr(), b, s, h, w, float(soft_threshold),
+                float((r + 1.0) ** 2 / r), slots, cand.data_ptr(), ok.data_ptr(),
+                *(a.data_ptr() for a in f), edge.data_ptr(), *count_ptrs, stream,
+            )
+            edge = edge.bool()
+        else:
+            code = lib.detect_candidates_lean(
+                dog.data_ptr(), b, s, h, w, float(soft_threshold), slots,
+                cand.data_ptr(), ok.data_ptr(), *count_ptrs, stream,
+            )
     _cuda.check(code, name)
     LAUNCHES[name] += 1
     return Candidates(

@@ -192,7 +192,8 @@ def tile_runs(shape, valid, frame, scale, x_oct, y_oct, tile: int) -> TileRuns:
     lanes = [_as_uint8(valid), frame.to(torch.int32).contiguous(),
              scale.to(torch.int32).contiguous(),
              require(x_oct.contiguous(), "tile_runs"), require(y_oct.contiguous(), "tile_runs")]
-    return _tile_runs_cuda(shape, lanes, tile, _cuda.stream_of(x_oct))
+    with _cuda.launch_on(x_oct) as stream:
+        return _tile_runs_cuda(shape, lanes, tile, stream)
 
 
 def _tile_runs_cuda(shape, lanes, tile, stream) -> TileRuns:
@@ -224,6 +225,7 @@ def _resident_lanes(fields, name, tile, valid, frame, scale, floats, plain, kern
     to their lanes."""
     if use_kernel(fields.gi, name):
         return kernel()
+    valid = valid.bool()
     src = tile_layout(fields.gi.shape, valid, frame, scale, floats[0], floats[1], tile).src
     rows = plain(valid[src], frame[src], scale[src], *(a[src] for a in floats))
     out = torch.empty_like(rows)
@@ -237,17 +239,18 @@ def _resident_call(fields, name, tile, width, valid, frame, scale, floats, radiu
     valid, frame = _lanes(scale, valid, frame)
     args = _kernel_args(fields, name, valid, frame, scale, *floats)
     b, s, h, w = fields.gi.shape
-    stream = _cuda.stream_of(fields.gi)
-    lay = _tile_runs_cuda(fields.gi.shape, args[:5], tile, stream)
     out = torch.zeros((scale.shape[0], width), dtype=torch.float32, device=fields.gi.device)
-    _cuda.check(
-        getattr(_cuda.library("patches"), name)(
-            fields.gi.data_ptr(), fields.gj.data_ptr(), b, s, h, w,
-            *(a.data_ptr() for a in (lay.heads, lay.runs, lay.run_end, lay.src) + tuple(args[1:])),
-            radius, tile, *shape, out.data_ptr(), stream,
-        ),
-        name,
-    )
+    with _cuda.launch_on(fields.gi) as stream:
+        lay = _tile_runs_cuda(fields.gi.shape, args[:5], tile, stream)
+        _cuda.check(
+            getattr(_cuda.library("patches"), name)(
+                fields.gi.data_ptr(), fields.gj.data_ptr(), b, s, h, w,
+                *(a.data_ptr() for a in (lay.heads, lay.runs, lay.run_end, lay.src)
+                  + tuple(args[1:])),
+                radius, tile, *shape, out.data_ptr(), stream,
+            ),
+            name,
+        )
     LAUNCHES[name] += 1
     return out
 
@@ -308,16 +311,16 @@ def orientation_hist_lanes(
     l = scale.shape[0]
     out = torch.empty((l, config.n_orientation_bins), dtype=torch.float32,
                       device=fields.gi.device)
-    lib = _cuda.library("patches")
-    _cuda.check(
-        lib.orientation_hist(
-            fields.gi.data_ptr(), fields.gj.data_ptr(), b, s, h, w, l,
-            *(a.data_ptr() for a in args), config.ori_patch_radius,
-            config.n_orientation_bins, float(config.orientation_lambda),
-            out.data_ptr(), _cuda.stream_of(out),
-        ),
-        "orientation_hist",
-    )
+    with _cuda.launch_on(out) as stream:
+        _cuda.check(
+            _cuda.library("patches").orientation_hist(
+                fields.gi.data_ptr(), fields.gj.data_ptr(), b, s, h, w, l,
+                *(a.data_ptr() for a in args), config.ori_patch_radius,
+                config.n_orientation_bins, float(config.orientation_lambda),
+                out.data_ptr(), stream,
+            ),
+            "orientation_hist",
+        )
     LAUNCHES["orientation_hist"] += 1
     return out
 
@@ -354,17 +357,16 @@ def descriptor_lanes(
     l = scale.shape[0]
     out = torch.empty((l, config.descriptor_length), dtype=torch.float32,
                       device=fields.gi.device)
-    lib = _cuda.library("patches")
-    _cuda.check(
-        lib.descriptor_hist(
-            fields.gi.data_ptr(), fields.gj.data_ptr(), b, s, h, w, l,
-            *(a.data_ptr() for a in args), config.desc_patch_radius,
-            config.n_histograms_per_axis, config.n_descriptor_bins,
-            float(config.descriptor_lambda), out.data_ptr(),
-            _cuda.stream_of(out),
-        ),
-        "descriptor_hist",
-    )
+    with _cuda.launch_on(out) as stream:
+        _cuda.check(
+            _cuda.library("patches").descriptor_hist(
+                fields.gi.data_ptr(), fields.gj.data_ptr(), b, s, h, w, l,
+                *(a.data_ptr() for a in args), config.desc_patch_radius,
+                config.n_histograms_per_axis, config.n_descriptor_bins,
+                float(config.descriptor_lambda), out.data_ptr(), stream,
+            ),
+            "descriptor_hist",
+        )
     LAUNCHES["descriptor_hist"] += 1
     return out
 
@@ -419,20 +421,19 @@ def orient_desc_lanes(
     raw = torch.empty((l, m, config.descriptor_length), dtype=torch.float32, device=dev)
     theta = torch.empty((l, m), dtype=torch.float32, device=dev)
     ov = torch.empty((l, m), dtype=torch.uint8, device=dev)
-    lib = _cuda.library("patches")
-    _cuda.check(
-        lib.orient_desc(
-            fields.gi.data_ptr(), fields.gj.data_ptr(), b, s, h, w, l,
-            *(a.data_ptr() for a in args), config.ori_patch_radius,
-            config.n_orientation_bins, float(config.orientation_lambda),
-            config.orientation_smoothing_iterations,
-            float(config.orientation_peak_threshold), m,
-            config.desc_patch_radius, config.n_histograms_per_axis,
-            config.n_descriptor_bins, float(config.descriptor_lambda),
-            raw.data_ptr(), theta.data_ptr(), ov.data_ptr(),
-            _cuda.stream_of(raw),
-        ),
-        "orient_desc",
-    )
+    with _cuda.launch_on(raw) as stream:
+        _cuda.check(
+            _cuda.library("patches").orient_desc(
+                fields.gi.data_ptr(), fields.gj.data_ptr(), b, s, h, w, l,
+                *(a.data_ptr() for a in args), config.ori_patch_radius,
+                config.n_orientation_bins, float(config.orientation_lambda),
+                config.orientation_smoothing_iterations,
+                float(config.orientation_peak_threshold), m,
+                config.desc_patch_radius, config.n_histograms_per_axis,
+                config.n_descriptor_bins, float(config.descriptor_lambda),
+                raw.data_ptr(), theta.data_ptr(), ov.data_ptr(), stream,
+            ),
+            "orient_desc",
+        )
     LAUNCHES["orient_desc"] += 1
     return raw, theta, ov.bool()

@@ -72,20 +72,98 @@ def pack_tables(mats: Sequence[np.ndarray]) -> BandTables:
     )
 
 
-_device_tables: Dict[Tuple, Tuple[torch.Tensor, ...]] = {}
+# Tile geometry of csrc/pyramid.cu (kTileRows, kTileCols, kBlock); the
+# launchers refuse any other.
+TILE_ROWS = 64
+TILE_COLS = 64
+TAP_BLOCK = 4
 
 
-def _on_device(key, tab: BandTables, device) -> Tuple[torch.Tensor, ...]:
-    k = (key, str(device))
-    hit = _device_tables.get(k)
+class TiledPass(NamedTuple):
+    """One pass direction's tables in the tiled kernel's form: the outputs
+    (padded to whole tiles) in blocks of TAP_BLOCK neighbours, each block
+    with one first input and its outputs' taps laid out on the block's
+    inputs (zero outside each output's own taps), plus each tile's input
+    window (host numpy)."""
+
+    base: np.ndarray  # [S, nb] int32: first input of each block
+    span: np.ndarray  # [S, nb] int32: inputs the block's taps reach
+    taps: np.ndarray  # [S, nb, kp, TAP_BLOCK] float32, kp = max span
+    win: np.ndarray   # [S, n_tiles, 2] int32: input [lo, hi) of each tile
+
+
+def tile_pass(tab: BandTables, tile: int) -> TiledPass:
+    """Lay ``tab`` out for tiles of ``tile`` outputs. Output i of block g
+    (i = g * TAP_BLOCK + p) reads input base[s, g] + m with tap
+    taps[s, g, m, p]; its own taps sit at m = start[s, i] - base[s, g] + k,
+    k < ks[s], in table order, so summing a block's taps over m in order
+    sums each output's taps in table order. Outputs past n_out repeat the
+    last output's start with zero taps."""
+    n_s, n_out = tab.start.shape
+    n_tiles = -(-n_out // tile)
+    n_pad = n_tiles * tile
+    nb = n_pad // TAP_BLOCK
+    idx = np.minimum(np.arange(n_pad), n_out - 1)
+    real = (np.arange(n_pad) < n_out).astype(np.float32)
+    start = tab.start[:, idx].astype(np.int64).reshape(n_s, nb, TAP_BLOCK)
+    base = start.min(-1)
+    d = start - base[..., None]
+    span = (d + tab.ks[:, None, None]).max(-1)
+    kp = int(span.max())
+    taps = np.zeros((n_s, nb, kp, TAP_BLOCK), np.float32)
+    g = np.arange(nb)[:, None]
+    p = np.arange(TAP_BLOCK)[None, :]
+    for s in range(n_s):
+        for k in range(int(tab.ks[s])):
+            taps[s, g, d[s] + k, p] = (tab.taps[s, k, idx] * real).reshape(nb, TAP_BLOCK)
+    per = tile // TAP_BLOCK
+    lo = base.reshape(n_s, n_tiles, per).min(-1)
+    hi = (base + span).reshape(n_s, n_tiles, per).max(-1)
+    c_int = lambda a: np.ascontiguousarray(a, np.int32)   # the kernel's flat layout
+    return TiledPass(base=c_int(base), span=c_int(span), taps=taps,
+                     win=c_int(np.stack([lo, hi], -1)))
+
+
+_tiled: Dict[Tuple, Tuple[TiledPass, TiledPass, Tuple[int, int, int]]] = {}
+_device_tables: Dict[Tuple, Tuple[Tuple[torch.Tensor, ...], np.ndarray, int]] = {}
+
+
+def tiled_tables(key, tab_x: BandTables, tab_y: BandTables):
+    """(x pass, y pass, (rows_in, cols_in, rows_x)) of one table pair,
+    cached under ``key``: the tiled tables and the shared-memory extents a
+    block needs (its input window over all slices; the rows one slice's X
+    pass fills)."""
+    hit = _tiled.get(key)
     if hit is None:
-        hit = (
-            torch.from_numpy(tab.start).to(device),
-            torch.from_numpy(tab.taps).to(device),
-            torch.from_numpy(tab.ks).to(device),
-        )
-        _device_tables[k] = hit
+        tx, ty = tile_pass(tab_x, TILE_COLS), tile_pass(tab_y, TILE_ROWS)
+        size = lambda w: w[..., 1] - w[..., 0]
+        union = lambda w: w[..., 1].max(0) - w[..., 0].min(0)
+        extents = (int(union(ty.win).max()), int(union(tx.win).max()),
+                   int(size(ty.win).max()))
+        hit = _tiled[key] = (tx, ty, extents)
     return hit
+
+
+def launch_tables(key, device, tables) -> int:
+    """The address of the host table the C launchers read for ``key`` on
+    ``device`` (csrc/pyramid.cu ``Table``): base, span, taps and win
+    pointers, nb, kp, n_tiles of the X pass, the same of the Y pass,
+    rows_in, cols_in, rows_x and the tile geometry. Built once per (key,
+    device) from ``tables()`` (the two BandTables); the device tensors and
+    the table stay cached."""
+    hit = _device_tables.get((key, device))
+    if hit is None:
+        tx, ty, extents = tiled_tables(key, *tables())
+        tensors, words = [], []
+        for tp in (tx, ty):
+            t = [torch.from_numpy(a).to(device) for a in tp]
+            tensors += t
+            words += [a.data_ptr() for a in t] + [tp.taps.shape[1], tp.taps.shape[2],
+                                                   tp.win.shape[1]]
+        words += [*extents, TILE_ROWS, TILE_COLS, TAP_BLOCK]
+        table = np.asarray(words, np.int64)
+        hit = _device_tables[(key, device)] = (tuple(tensors), table, table.ctypes.data)
+    return hit[2]
 
 
 # --- plain versions of the two passes --------------------------------------
@@ -152,15 +230,16 @@ def separable_bands(
     counter: str,
     mid_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """X pass then Y pass of every slice over a [B, H_in, W_in] input.
+    """X pass then Y pass of every slice over a [B, H_in, W_in] input, in
+    one launch of the tiled kernel on a CUDA tensor.
 
     ``x`` (and ``first``) are fp32 or bf16; ``mid_dtype`` is the type of
     the X pass's result that the Y pass reads (bf16 only for a bf16 ``x``
     without ``first``: the cascade blur of the bf16 chain). Returns fp32
     (gauss [B, S (+1 with ``first``), H_out, W_out], dog or None). On a
-    CUDA tensor both passes are kernel launches (counted once under
-    ``counter``, or ``counter_bf16`` for a bf16 ``x``); on the CPU the plain
-    versions run."""
+    CUDA tensor the passes are one launch of ``band_tiles`` (counted under
+    ``counter``, or ``counter_bf16`` for a bf16 ``x``), the X pass of each
+    tile kept in shared memory; on the CPU the plain versions run."""
     bf16 = torch.bfloat16
     if x.dtype not in (torch.float32, bf16):
         raise TypeError(f"{counter}: expected float32 or bfloat16, got {x.dtype}")
@@ -183,17 +262,7 @@ def separable_bands(
         raise ValueError(f"{counter}: tables do not fit input {tuple(x.shape)}")
     if first is not None and tuple(first.shape) != (b, h_out, w_out):
         raise ValueError(f"{counter}: first slice {tuple(first.shape)} does not fit")
-    sx, tx, kx = _on_device((key, "x"), tab_x, x.device)
-    sy, ty, ky = _on_device((key, "y"), tab_y, x.device)
-    lib = _cuda.library("pyramid")
-    stream = _cuda.stream_of(x)
-    xs = torch.empty((b, s, h_in, w_out), dtype=mid_dtype, device=x.device)
-    _cuda.check(
-        lib.band_x(x.data_ptr(), int(x.dtype == bf16), b, h_in, w_in,
-                   sx.data_ptr(), tx.data_ptr(), kx.data_ptr(), s, tx.shape[1],
-                   w_out, xs.data_ptr(), int(mid_dtype == bf16), stream),
-        "band_x",
-    )
+    tables = launch_tables(key, x.device, lambda: (tab_x, tab_y))
     g = s + (1 if first is not None else 0)
     gauss = torch.empty((b, g, h_out, w_out), dtype=torch.float32, device=x.device)
     dog = (
@@ -201,15 +270,16 @@ def separable_bands(
         if with_dog
         else None
     )
-    _cuda.check(
-        lib.band_y(xs.data_ptr(), int(mid_dtype == bf16), b, s, h_in, w_out,
-                   sy.data_ptr(), ty.data_ptr(), ky.data_ptr(), ty.shape[1],
-                   h_out, 0 if first is None else first.data_ptr(),
-                   int(first is not None and first.dtype == bf16),
-                   gauss.data_ptr(), 0 if dog is None else dog.data_ptr(),
-                   stream),
-        "band_y",
-    )
+    with _cuda.launch_on(x) as stream:
+        _cuda.check(
+            _cuda.library("pyramid").band_tiles(
+                tables, x.data_ptr(), int(x.dtype == bf16), b, h_in, w_in, s, h_out,
+                w_out, 0 if first is None else first.data_ptr(),
+                int(first is not None and first.dtype == bf16), gauss.data_ptr(),
+                0 if dog is None else dog.data_ptr(), int(mid_dtype == bf16), stream,
+            ),
+            counter,
+        )
     LAUNCHES[counter + "_bf16" if x.dtype == bf16 else counter] += 1
     return gauss, dog
 

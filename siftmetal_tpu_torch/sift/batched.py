@@ -7,9 +7,10 @@ follows the configuration and the input, not the device. With
 ``use_oneshot_pyramid``: the fused seed kernel for octave 0 when
 ``seed_supports``, the one-shot kernel for octaves of at least 176 rows.
 With ``use_pallas_pyramid`` (fp32 only): the fused cascade kernel for the
-remaining octaves of at least 256 rows. The incremental cascade of single
-blurs otherwise. ``pyramid_dtype="bfloat16"`` feeds every one of them a
-bf16 chain. ``detect_slot_fields`` and ``use_fused_describe`` pick the
+remaining octaves of at least 256 rows. Otherwise the incremental
+cascade, one launch an octave (``blur_cascade``).
+``pyramid_dtype="bfloat16"`` feeds every one of them a bf16 chain.
+``detect_slot_fields`` and ``use_fused_describe`` pick the
 detection and describe variants; ``use_band_patches`` sends the two staged
 patch stages through their resident-tile kernels (inside the wrappers; the
 fused form has none, as in the JAX package). On a CUDA device every kernel wrapper
@@ -26,6 +27,7 @@ import torch
 from ..config import SiftConfig
 from ..ops.image import decimate_2x
 from ..ops.kernels import pyramid as _oneshot
+from ..ops.kernels.blur import blur_cascade
 from ..ops.kernels.cascade import octave_cascade
 from ..ops.kernels.patches import (
     descriptor_lanes,
@@ -35,7 +37,7 @@ from ..ops.kernels.patches import (
 )
 from . import describe as _describe
 from . import detect as _detect
-from .pyramid import cascade_slices, is_bf16, seed_image
+from .pyramid import is_bf16, seed_image
 
 # Profiler ranges of the stages (read by chip_smoke.py's breakdown; free
 # when no profiler runs).
@@ -74,8 +76,8 @@ def build_pyramid_batch(
         elif use_cascade and shapes[o][0] >= 256:
             stack, dog = octave_cascade(first, config)
         else:
-            stack = torch.stack(cascade_slices(first, o, config), dim=1)
-            dog = stack[:, 1:] - stack[:, :-1]
+            # sift/pyramid.py cascade_slices, stacked, in one launch.
+            stack, dog = blur_cascade(first, config.incremental_sigmas(o), bf16)
         gaussians.append(stack)
         dogs.append(dog)
     return gaussians, dogs

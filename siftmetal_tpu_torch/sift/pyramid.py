@@ -3,7 +3,9 @@
 Port of ``siftmetal_tpu/sift/pyramid.py`` ``seed_image`` :41 and
 ``cascade_slices`` :78. Every blur goes through the band kernel wrapper
 (``ops/kernels/blur.py``): its plain version on the CPU, its CUDA kernel
-on the card.
+on the card. ``cascade_slices`` is the per-stage route, one ``blur_stack``
+a stage; ``sift/batched.py`` runs the same cascade in one launch an
+octave (``blur_cascade``), equal to it bit for bit.
 
 With ``pyramid_dtype="bfloat16"`` the chain each blur READS is bf16 and
 every EMITTED slice is the blur's fp32 accumulator: Gaussians stored in

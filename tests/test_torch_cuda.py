@@ -14,7 +14,12 @@ from siftmetal_tpu_torch.config import SiftConfig
 from siftmetal_tpu_torch.ops import gaussian as PG
 from siftmetal_tpu_torch.ops.kernels import LAUNCHES
 from siftmetal_tpu_torch.ops.kernels import pyramid as PP
-from siftmetal_tpu_torch.ops.kernels.blur import blur_stack, blur_tables
+from siftmetal_tpu_torch.ops.kernels.blur import (
+    blur_cascade,
+    blur_cascade_plain,
+    blur_stack,
+    blur_tables,
+)
 from siftmetal_tpu_torch.ops.kernels.cascade import (
     octave_cascade,
     octave_cascade_plain,
@@ -295,6 +300,80 @@ def test_bf16_band_kernels_match_plain(cuda_dev):
     assert torch.equal(blur_stack(first, 0.6131), blur_stack(first, 0.6131))
 
 
+# The small-octave cascades of the 640x480 batch (octave 3) and of the
+# butterfly's parity octaves 2-5, and a plane smaller than its radii.
+CASCADE_SHAPES = [(8, 120, 160), (1, 170, 256), (1, 85, 128), (1, 42, 64), (1, 21, 32),
+                  (2, 7, 10)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("shape", CASCADE_SHAPES)
+def test_blur_cascade_equals_per_step_route(cuda_dev, shape, bf16):
+    """One cooperative launch gives the per-step route's slices and DoGs
+    (five blur_stack launches, a stack, a subtraction) bit for bit, and its
+    plain version to 1e-5 (the kernels' FMA contraction). In the bf16 chain
+    that last-bit difference now and then flips the bf16 rounding of a
+    stage's input, which the later stages carry: there, as the fast
+    preset's tests hold it, 1e-5 on all but 2% of the samples and no
+    sample off by more than one bf16 ulp (2^-8) of the largest value."""
+    from siftmetal_tpu_torch.sift.pyramid import cascade_slices
+
+    cfg = SiftConfig(pyramid_dtype="bfloat16") if bf16 else CFG
+    rng = np.random.default_rng(13)
+    first = _t(rng.uniform(0, 1, shape).astype(np.float32), cuda_dev)
+    firsts = [first.to(torch.bfloat16), first] if bf16 else [first]
+    for f in firsts:
+        name = "blur_cascade_bf16" if bf16 else "blur_cascade"
+        n0, s0 = LAUNCHES[name], LAUNCHES["blur_stack"] + LAUNCHES["blur_stack_bf16"]
+        g, d = blur_cascade(f, cfg.incremental_sigmas(3), bf16)
+        assert LAUNCHES[name] == n0 + 1
+        assert LAUNCHES["blur_stack"] + LAUNCHES["blur_stack_bf16"] == s0
+        ref = torch.stack(cascade_slices(f, 3, cfg), dim=1)
+        assert torch.equal(g, ref)
+        assert torch.equal(d, ref[:, 1:] - ref[:, :-1])
+        gp, dp = blur_cascade_plain(f, cfg.incremental_sigmas(3), bf16)
+        for got, want in ((g, gp), (d, dp)):
+            err = (got - want).abs()
+            if bf16:
+                assert err.max().item() <= 2.0 ** -8 * max(want.abs().max().item(), 1.0)
+                assert (err > 1e-5).float().mean().item() <= 0.02
+            else:
+                assert err.max().item() < 1e-5
+        g2, d2 = blur_cascade(f, cfg.incremental_sigmas(3), bf16)
+        assert torch.equal(g, g2) and torch.equal(d, d2)
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_the_tensors_device(cuda_dev):
+    """Tensors on the second card, with the first current: every kind of
+    launcher (tiled bands, cooperative cascade, detection, a staged and a
+    resident patch kernel) runs there and gives the first card's values."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    rng = np.random.default_rng(5)
+    gray = rng.uniform(0, 1, (1, 200, 300)).astype(np.float32)
+    band = SiftConfig(use_band_patches=True)
+    outs = []
+    for dev in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        torch.cuda.set_device(0)
+        x = _t(gray, dev)
+        g, d = PP.seed_octave(x, CFG)
+        gc, dc = blur_cascade(g[:, 3].contiguous(), CFG.incremental_sigmas(3), False)
+        cand = detect_candidates(d, 0.8 * CFG.dog_threshold, CFG.edge_threshold)
+        fields = prepare_patch_fields(g, CFG)
+        lane = (torch.full((4,), 2, dtype=torch.int32, device=dev),
+                torch.tensor([50.0, 120.0, 200.0, 300.0], device=dev),
+                torch.tensor([60.0, 200.0, 400.0, 500.0], device=dev),
+                torch.full((4,), 2.0, device=dev))
+        hs = orientation_hist_lanes(fields, *lane, CFG)
+        hb = orientation_hist_lanes(fields, *lane, band)
+        torch.cuda.synchronize(dev)
+        outs.append([t.cpu() for t in (g, d, gc, dc, cand.cand_col, hs, hb)])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 256, 320), (1, 70, 45), (3, 100, 200)])
 def test_cascade_kernel_matches_plain(cuda_dev, shape):
@@ -508,6 +587,8 @@ def test_wrappers_do_not_fall_back(cuda_dev, monkeypatch):
         octave_cascade(x, CFG)
     with pytest.raises(RuntimeError, match="unavailable"):
         blur_stack(x.to(torch.bfloat16), 1.0)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        blur_cascade(x, CFG.incremental_sigmas(3), False)
     with pytest.raises(RuntimeError, match="unavailable"):
         detect_candidates(torch.zeros((1, 5, 16, 16), device=cuda_dev), 0.01, 10.0,
                           emit_fields=False)

@@ -305,6 +305,8 @@ def calls(monkeypatch):
                 tag = "detect_candidates_lean"
             if name == "blur_stack" and a[0].dtype == torch.bfloat16:
                 tag = "blur_stack_bf16"
+            if name == "blur_cascade" and a[2]:
+                tag = "blur_cascade_bf16"
             if name in ("seed_octave", "octave_oneshot") and a[0].dtype == torch.bfloat16:
                 tag = name + "_bf16"
             if name == "_resident_lanes":
@@ -319,6 +321,7 @@ def calls(monkeypatch):
     spy(PB._oneshot, "seed_octave")
     spy(PB._oneshot, "octave_oneshot")
     spy(PB, "octave_cascade")
+    spy(PB, "blur_cascade")
     spy(PPy, "blur_stack")
     spy(PD, "detect_candidates")
     spy(PB, "orientation_hist_lanes")
@@ -362,10 +365,14 @@ def test_pyramid_routing_follows_config(calls, name):
     for key, n in want.items():
         assert calls.count(key) == n, (key, calls)
     blurs = calls.count("blur_stack") + calls.count("blur_stack_bf16")
+    cascades = calls.count("blur_cascade") + calls.count("blur_cascade_bf16")
     direct = sum(calls.count(k) for k in ("seed_octave", "seed_octave_bf16", "octave_oneshot",
                                           "octave_oneshot_bf16", "octave_cascade"))
     seed_blur = 0 if calls.count("seed_octave") + calls.count("seed_octave_bf16") else 1
-    assert blurs == 5 * (n_oct - direct) + seed_blur, calls
+    # One blur_cascade an octave that no direct route takes; blur_stack
+    # only for the unfused seed image.
+    assert cascades == n_oct - direct and blurs == seed_blur, calls
+    assert calls.count("blur_cascade_bf16") == (cascades if cfg.pyramid_dtype == "bfloat16" else 0)
     if tol is not None:
         ref, _ = PB.build_pyramid_batch(gray, SiftConfig(use_oneshot_pyramid=False), n_oct)
         for a, b in zip(gauss, ref):
