@@ -19,10 +19,13 @@ Phases, in order; any failure exits non-zero and prints no result:
     descriptors against the staged descriptor kernel at its own theta,
     bit for bit; the descriptor rows, the fused row and the resident rows
     launched twice and equal bit for bit, with their registers, stack
-    frame and spills from the build log);
+    frame and spills from the build log; detection also over every octave
+    of the parity batch in one launch, field by field against the plain
+    version per octave and on dense rows, with the band-height sweep);
  3. main path: SIFT(480, 640).extract_batch on 8 seeded noise frames (as
     bench.py makes them), with every launch counter set to 0 just before
-    and read just after; frames/s from CUDA events;
+    and read just after (pyramid and detection launches checked exactly);
+    frames/s from CUDA events;
  4. fast path: SIFT(480, 640, config=FAST_BF16_CONFIG).extract_batch on
     the same frames and match_bruteforce over the 4 frame pairs, counters
     set to 0 just before and read just after; then a 4096 x 131072 map
@@ -128,6 +131,25 @@ def _time_ms(fn, iters: int, warmup: int = 1) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _queued_ms(fn, iters: int = 20) -> float:
+    """Device ms per call of ``fn`` with the host ahead of the card: a
+    sleep kernel holds the stream while the host queues ``iters`` calls,
+    so the events time the calls' device work and not their host work."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)                # ~20 ms of cycles
     start.record()
     for _ in range(iters):
         fn()
@@ -271,20 +293,24 @@ def phase_kernels(peaks):
 
     # --- detection at octave 0 ---------------------------------------------
     rep = Report("detect_candidates", "siftmetal_tpu_torch/csrc/detect.cu",
-                 "siftmetal_tpu/ops/pallas/detect.py:51", 1e-5)
+                 "siftmetal_tpu/ops/pallas/detect.py:51", 0.0)
     thr = 0.8 * cfg.dog_threshold
     cd = KD.detect_candidates(d0, thr, cfg.edge_threshold)
     cp = KD.detect_candidates_plain(d0, thr, cfg.edge_threshold)
     for name in ("cand_col", "slot_ok", "cand_edge", "n_raw", "n_soft", "n_row_dropped"):
         if not torch.equal(getattr(cd, name), getattr(cp, name)):
             raise AssertionError(f"detect_candidates: {name} differs from the plain version")
-    # Taylor fields relative to max(1, |plain|): -fmad=false makes them
-    # exact in practice; large values come from near-singular Hessians.
-    err = max(float(((a - c).abs() / c.abs().clamp(min=1.0)).max())
-              for a, c in zip(cd.cand_fields, cp.cand_fields))
-    abs_err = max(_max_err(a, c) for a, c in zip(cd.cand_fields, cp.cand_fields))
-    rep.row["ms"] = _time_ms(lambda: KD.detect_candidates(d0, thr, cfg.edge_threshold), 10)
+    # -fmad=false: the Taylor fields equal the plain version's bit for bit.
+    err = max(_max_err(a, c) for a, c in zip(cd.cand_fields, cp.cand_fields))
+    one = lambda: KD.detect_candidates(d0, thr, cfg.edge_threshold)
+    rep.row["ms"] = _queued_ms(one)
     rep.row["plain_ms"] = _time_ms(lambda: KD.detect_candidates_plain(d0, thr, cfg.edge_threshold), 2)
+    print(f"[kernel] detect_candidates at {b}x{d0.shape[1]}x{H}x{W}: {rep.row['ms']:.4f} ms queued "
+          f"(kernel alone {_device_ms(one, ('detect_kernel',))['detect_kernel']:.4f} ms of device time, "
+          f"{_time_ms(one, 10):.4f} ms on the host's clock); "
+          f"{_ptxas_line(f'detect_kernelILb1ELi5ELi{KD.BAND_ROWS}E')}; "
+          f"{_ptxas_line(f'detect_kernelILb0ELi5ELi{KD.BAND_ROWS}E')}", flush=True)
+    _detect_batch(peaks, gray, cfg)
     interior = b * (d0.shape[1] - 2) * (H - 2) * (W - 2)
     n_soft = int(cd.n_soft.sum())
     out_bytes = sum(t.numel() * t.element_size() for t in
@@ -292,7 +318,7 @@ def phase_kernels(peaks):
     # ~56 ops per interior sample (26 max + 26 min + tests), ~100 per soft
     # extremum (Taylor step and edge test).
     rep.bound(f4 * d0.numel() + out_bytes, 56.0 * interior + 100.0 * n_soft, peaks)
-    rep.check(err, abs_err)
+    rep.check(err)
     reports[rep.row["name"]] = rep
 
     # --- orientation + descriptors on the lanes of a real run --------------
@@ -371,6 +397,77 @@ def phase_kernels(peaks):
     _slice2_kernels(reports, peaks, gray, g0, d0, cd, fields, kpc, frame, ori_args, valid,
                     n_ori_samples)
     return reports
+
+
+def _detect_batch(peaks, gray, cfg):
+    """Detection over every octave of the parity batch in one launch: held
+    field by field against the plain version octave by octave (and on
+    dense noise rows that overflow their slots), its device time beside
+    the byte bound summed over the octaves, and the band-height sweep
+    (each height equal to the default bit for bit)."""
+    import numpy as np
+    import torch
+
+    from siftmetal_tpu_torch.ops.kernels import detect as KD
+    from siftmetal_tpu_torch.sift.batched import build_pyramid_batch
+
+    _, dogs = build_pyramid_batch(gray, cfg, cfg.num_octaves(*gray.shape[-2:]))
+    thr = 0.8 * cfg.dog_threshold
+    names = ("cand_col", "slot_ok", "n_raw", "n_soft", "n_row_dropped")
+
+    def held(stacks, fields, what):
+        got = KD.detect_candidates_octaves(stacks, thr, cfg.edge_threshold, emit_fields=fields)
+        for g, d in zip(got, stacks):
+            ref = KD.detect_candidates_plain(d, thr, cfg.edge_threshold, emit_fields=fields)
+            same = all(torch.equal(getattr(g, n), getattr(ref, n)) for n in names)
+            if fields:
+                same = same and torch.equal(g.cand_edge, ref.cand_edge) and all(
+                    torch.equal(a, c) for a, c in zip(g.cand_fields, ref.cand_fields))
+            _require(same, f"detect_candidates_octaves ({what}, fields={fields}): octave "
+                           f"{tuple(d.shape)} differs from the plain version")
+        return got
+
+    outs = {fields: held(dogs, fields, "parity batch") for fields in (True, False)}
+    # Dense rows: noise at the same threshold fills rows past their slots.
+    rng = np.random.default_rng(3)
+    dense = [torch.from_numpy(rng.normal(0.0, 0.02, (2,) + tuple(d.shape[1:])).astype(np.float32))
+             .to(gray.device) for d in dogs]
+    n_dense = sum(int(g.n_row_dropped.sum()) for g in held(dense, True, "dense rows"))
+    held(dense, False, "dense rows")
+    _require(n_dense > 0, "dense-row check: no row overflowed its slots")
+    del dense
+    dropped = sum(int(g.n_row_dropped.sum()) for g in outs[True])
+    nbytes = sum(4.0 * d.numel() for d in dogs)
+    out_bytes = sum(t.numel() * t.element_size() for g in outs[True]
+                    for t in (g.cand_col, g.slot_ok, g.cand_edge, *g.cand_fields))
+    bound = (nbytes + out_bytes) / peaks[0] * 1e3
+    line = []
+    for r in KD.BAND_ROW_CHOICES:
+        for fields in (True, False):
+            fn = lambda: KD.detect_candidates_octaves(dogs, thr, cfg.edge_threshold,
+                                                      emit_fields=fields, band_rows=r)
+            got = fn()
+            _require(all(torch.equal(a.cand_col, c.cand_col) and torch.equal(a.n_soft, c.n_soft)
+                         for a, c in zip(got, outs[fields])),
+                     f"detection at band height {r} differs from the default")
+            line.append(f"R {r} {'full' if fields else 'lean'}: batch "
+                        f"{_device_ms(fn, ('detect_kernel',))['detect_kernel']:.4f} / octave 0 "
+                        f"{_device_ms(lambda: KD.detect_candidates(dogs[0], thr, cfg.edge_threshold, emit_fields=fields, band_rows=r), ('detect_kernel',))['detect_kernel']:.4f}")
+    full = lambda: KD.detect_candidates_octaves(dogs, thr, cfg.edge_threshold)
+    lean = lambda: KD.detect_candidates_octaves(dogs, thr, cfg.edge_threshold, emit_fields=False)
+    print(f"[kernel] detect_candidates_octaves over the {len(dogs)} parity octaves "
+          f"({' '.join(f'{d.shape[-2]}x{d.shape[-1]}' for d in dogs)}, B {dogs[0].shape[0]}): "
+          f"equal to the plain version octave by octave in every field, both forms "
+          f"({dropped} soft extrema past full rows; on dense noise rows at B 2 {n_dense}, "
+          f"equal as well); one launch "
+          f"{_device_ms(full, ('detect_kernel',))['detect_kernel']:.4f} ms of device time "
+          f"(lean {_device_ms(lean, ('detect_kernel',))['detect_kernel']:.4f}), queued call "
+          f"{_queued_ms(full):.4f} ms (lean {_queued_ms(lean):.4f}), host's clock "
+          f"{_time_ms(full, 10):.4f} ms; bound {bound:.4f} ms (bytes: {nbytes / 1e6:.1f} MB of DoG "
+          f"read once + {out_bytes / 1e6:.2f} MB of slots); default band height {KD.BAND_ROWS}",
+          flush=True)
+    print("[kernel] detection band-height sweep (device ms of the kernel): " + "; ".join(line),
+          flush=True)
 
 
 def _cascade_row(reports, peaks, first, cfg, o, bf16):
@@ -687,14 +784,15 @@ def _slice2_kernels(reports, peaks, gray, g0, d0, cd, fields, kpc, frame, ori_ar
     lean = lambda: KD.detect_candidates(d0, thr, cfg.edge_threshold, emit_fields=False)
     full = lambda: KD.detect_candidates(d0, thr, cfg.edge_threshold)
     # lean, full, full, lean: the two forms timed in turns in one run.
-    t = [_time_ms(f, 10) for f in (lean, full, full, lean)]
+    t = [_queued_ms(f) for f in (lean, full, full, lean)]
     rep.row["ms"] = 0.5 * (t[0] + t[3])
     rep.row["plain_ms"] = _time_ms(
         lambda: KD.detect_candidates_plain(d0, thr, cfg.edge_threshold, emit_fields=False), 2)
     interior = b * (d0.shape[1] - 2) * (H - 2) * (W - 2)
     rep.bound(f4 * d0.numel() + cl.cand_col.numel() * 5.0, 56.0 * interior, peaks)
-    print(f"[kernel] detect in turns (ms): lean {t[0]:.4f}, full {t[1]:.4f}, full {t[2]:.4f}, "
-          f"lean {t[3]:.4f}", flush=True)
+    print(f"[kernel] detect in turns (queued ms): lean {t[0]:.4f}, full {t[1]:.4f}, "
+          f"full {t[2]:.4f}, lean {t[3]:.4f}; all outputs equal to the full kernel and to the "
+          f"plain version", flush=True)
     add(rep, 0.0)
 
     # --- fused orientation + descriptor on octave 0's keypoints ------------
@@ -884,10 +982,15 @@ FAST_PYRAMID = {"seed_octave_bf16": 1, "octave_oneshot_bf16": 1, "blur_cascade_b
                 "blur_stack_bf16": 0, "blur_stack": 0, "blur_cascade": 0}
 
 
-def _require_launches(tag, launches, want):
+# Detection launches of one extract_batch: every octave in one launch.
+PARITY_DETECT = {"detect_candidates": 1, "detect_candidates_lean": 0}
+LEAN_DETECT = {"detect_candidates": 0, "detect_candidates_lean": 1}
+
+
+def _require_launches(tag, launches, want, what="pyramid"):
     got = {k: launches[k] for k in want}
-    _require(got == want, f"{tag}: pyramid launches {got}, expected {want}")
-    print(f"[{tag}] pyramid launches {json.dumps(got)}", flush=True)
+    _require(got == want, f"{tag}: {what} launches {got}, expected {want}")
+    print(f"[{tag}] {what} launches {json.dumps(got)}", flush=True)
 OVERFLOWS = ("overflow", "descriptor_overflow", "keypoint_overflow")
 
 
@@ -973,6 +1076,7 @@ def phase_main_path(reports, smi_line):
     x = _noise_frames(sift.device)
     _, descs, ctr, launches, _ = _drive("main", sift, x, PARITY_KERNELS, reports)
     _require_launches("main", launches, PARITY_PYRAMID)
+    _require_launches("main", launches, PARITY_DETECT, "detection")
     # Frame 0 alone gives frame 0's batched result.
     _, d1, c1 = sift.extract(x[0])
     _require(all(int(c1[k]) == ctr[k][0] for k in c1), "batched != single-frame counters")
@@ -1023,6 +1127,7 @@ def phase_fast_path(reports, parity_ctr, smi_line):
     _, descs, ctr, fl, matched = _drive("fast", sift, x, required, reports, match_pairs,
                                         may_overflow=True)
     _require_launches("fast", fl, FAST_PYRAMID)
+    _require_launches("fast", fl, PARITY_DETECT, "detection")
     nq = sift.config.max_descriptors
     for (i, j), (mt, score) in zip(pairs, matched):
         _require(mt.target_idx.shape == (nq,) and mt.target_idx.dtype == torch.int32,
@@ -1103,6 +1208,7 @@ def phase_fast_path(reports, parity_ctr, smi_line):
         unused = {"cascade": ("seed_octave", "octave_oneshot"), "lean": ("detect_candidates",),
                   "fused": ("orientation_hist", "descriptor_hist")}[tag]
         _require(all(vl[k] == 0 for k in unused), f"{tag}: still launched {unused}: {vl}")
+        _require_launches(tag, vl, LEAN_DETECT if tag == "lean" else PARITY_DETECT, "detection")
         stages = ("n_extrema", "n_soft", "n_interp", "n_hard", "n_edge", "n_border")
         if tag == "cascade":
             # Another order of the same blurs: counts within 1% of the
@@ -1444,6 +1550,9 @@ def _profile(tag, fn):
         if hit:
             pyr[form] = f"{sum(ms for ms, _ in hit):.3f} ms x{sum(c for _, c in hit)}"
     print(f"[profile {tag}] pyramid kernels: {json.dumps(pyr)}", flush=True)
+    hit = [v for k, v in per.items() if "detect_kernel" in k]
+    print(f"[profile {tag}] detection kernel: {sum(ms for ms, _ in hit):.3f} ms "
+          f"x{sum(c for _, c in hit)}", flush=True)
 
 
 def phase_ipol(smi_line):

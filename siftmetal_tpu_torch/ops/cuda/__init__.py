@@ -51,12 +51,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "blur_cascade": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     },
     "detect": {
-        # dog, B, S, H, W, soft_thr, edge_bound, slots, cand_col, slot_ok,
-        # c_oi, c_oj, c_os, c_val, c_edge, n_raw, n_soft, n_drop, stream
-        "detect_candidates": [_P, _I, _I, _I, _I, _F, _F, _I] + [_P] * 11,
-        # dog, B, S, H, W, soft_thr, slots, cand_col, slot_ok, n_raw,
-        # n_soft, n_drop, stream
-        "detect_candidates_lean": [_P, _I, _I, _I, _I, _F, _I] + [_P] * 6,
+        # table (the launch's int64 host table), soft_thr, edge_bound,
+        # emit_fields, cand_col, slot_ok, c_oi, c_oj, c_os, c_val, c_edge,
+        # counts, stream
+        "detect_octaves": [_P, _F, _F, _I] + [_P] * 9,
     },
     "cascade": {
         # g0, B, H, W, taps, radii, n_stage, k_max, total_radius, tile,

@@ -9,6 +9,12 @@ extrema per frame. Rows are the true interior (H-2 of them; the TPU
 kernel's tile padding is gone), and the column and edge flag are separate
 tensors (the TPU packed both into one 13-bit word).
 
+:func:`detect_candidates_octaves` runs every octave of a batch in one
+launch: one task per (octave, frame, band of ``band_rows`` rows), laid
+out by :func:`launch_plan`; each output kind is one allocation over all
+octaves and the per-octave :class:`Candidates` are views of it.
+:func:`detect_candidates` is the same launch over one octave.
+
 ``emit_fields=False`` is the lean form (the TPU kernel's
 ``emit_fields=False`` branches, ``detect.py`` :64, :222-225, :301-346):
 the same test, ranking and counters, but only ``cand_col``, ``slot_ok``
@@ -20,8 +26,10 @@ Bound on an H100: bytes, one read of the DoG stack. See csrc/detect.cu.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import ctypes
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import cuda as _cuda
@@ -135,57 +143,141 @@ def detect_candidates_plain(
     )
 
 
+class OctavePlan(NamedTuple):
+    """Where one octave sits in a detection launch."""
+
+    h: int
+    w: int
+    bands: int      # tasks per frame: ceil((h - 2) / band_rows) row bands
+    task0: int      # first task of the octave
+    out0: int       # first element of the octave in each flat output
+    size: int       # elements of the octave: B * (S - 2) * (h - 2) * slots
+
+
+# Output rows a block of csrc/detect.cu walks (its R template argument,
+# kRows there): 32, the least device time in the band-height sweep; the
+# sweep's 8 and 16 are built for 5 DoG planes (3 scales an octave) only.
+BAND_ROWS = 32
+BAND_ROW_CHOICES = (8, 16, 32)
+MAX_OCTAVES = 16     # csrc/detect.cu kMaxOctaves
+SCALES = range(3, 9)  # DoG planes an octave may have (instances built)
+
+
+def launch_plan(
+    shapes: Sequence[Tuple[int, int]], batch: int, n_dog: int, slots: int,
+    band_rows: int = BAND_ROWS,
+) -> Tuple[List[OctavePlan], int, int]:
+    """The detection launch over octaves of ``shapes`` (in order): each
+    octave's plan, the number of tasks and of output elements per kind.
+    Task ``task0 + b * bands + k`` of an octave takes frame ``b``, rows
+    ``[k * band_rows, (k + 1) * band_rows)`` of the interior and every
+    scale; output (b, s, r, slot) of the octave is element
+    ``out0 + ((b * (n_dog - 2) + s) * (h - 2) + r) * slots + slot``."""
+    plans, task, out = [], 0, 0
+    for h, w in shapes:
+        bands = -(-(h - 2) // band_rows)
+        size = batch * (n_dog - 2) * (h - 2) * slots
+        plans.append(OctavePlan(h, w, bands, task, out, size))
+        task += batch * bands
+        out += size
+    return plans, task, out
+
+
+def detect_candidates_octaves(
+    dogs: Sequence[torch.Tensor],
+    soft_threshold: float,
+    edge_threshold: float,
+    slots: int = 6,
+    emit_fields: bool = True,
+    band_rows: int = BAND_ROWS,
+) -> List[Candidates]:
+    """Per-octave [B, S, H_o, W_o] fp32 DoGs -> one :class:`Candidates` per
+    octave (see module doc), in one launch on CUDA tensors."""
+    name = "detect_candidates" if emit_fields else "detect_candidates_lean"
+    if not dogs:
+        raise ValueError(f"{name}: no octaves")
+    if not use_kernel(dogs[0], name):
+        return [
+            detect_candidates_plain(d, soft_threshold, edge_threshold, slots, emit_fields)
+            for d in dogs
+        ]
+    if not 1 <= slots <= 32:
+        raise ValueError(f"{name}: slots={slots} outside [1, 32]")
+    if band_rows not in BAND_ROW_CHOICES:
+        raise ValueError(f"{name}: band_rows={band_rows} not in {BAND_ROW_CHOICES}")
+    if len(dogs) > MAX_OCTAVES:
+        raise ValueError(f"{name}: {len(dogs)} octaves, at most {MAX_OCTAVES} a launch")
+    b, s = dogs[0].shape[:2]
+    for d in dogs:
+        require(d, name)
+        if d.device != dogs[0].device:
+            raise ValueError(f"{name}: octaves on {d.device} and {dogs[0].device}")
+        if d.ndim != 4 or tuple(d.shape[:2]) != (b, s) or min(d.shape[2:]) < 3:
+            raise ValueError(f"{name}: expected [{b}, {s}, H>=3, W>=3], got {tuple(d.shape)}")
+    if s not in SCALES:
+        raise ValueError(f"{name}: {s} DoG planes, the kernel takes {SCALES.start}-{SCALES.stop - 1}")
+    if band_rows != BAND_ROWS and s != 5:
+        raise ValueError(f"{name}: band_rows={band_rows} is built for 5 DoG planes only")
+    plans, _, total = launch_plan(
+        [tuple(d.shape[2:]) for d in dogs], b, s, slots, band_rows)
+    table = np.empty(5 + 6 * len(dogs), np.int64)
+    table[:5] = (len(dogs), b, s, slots, band_rows)
+    table[5:] = np.asarray(
+        [(d.data_ptr(), p.h, p.w, p.bands, p.task0, p.out0) for d, p in zip(dogs, plans)],
+        np.int64).reshape(-1)
+    dev = dogs[0].device
+    # One allocation per kind: the columns, the slot and edge flags (uint8
+    # rows of one buffer), the four Taylor fields (rows of one buffer), and
+    # the per-(octave, frame) counters with the launch's task ticket.
+    cand = torch.empty(total, dtype=torch.int32, device=dev)
+    flags = torch.empty((2 if emit_fields else 1, total), dtype=torch.uint8, device=dev)
+    fields = torch.empty((4, total), dtype=torch.float32, device=dev) if emit_fields else None
+    flat_counts = torch.zeros(3 * len(dogs) * b + 1, dtype=torch.int32, device=dev)
+    row = lambda a, k: a.data_ptr() + k * a.stride(0) * a.element_size()
+    with _cuda.launch_on(dogs[0]) as stream:
+        r = edge_threshold
+        code = _cuda.library("detect").detect_octaves(
+            table.ctypes.data_as(ctypes.c_void_p), float(soft_threshold),
+            float((r + 1.0) ** 2 / r), int(emit_fields), cand.data_ptr(), row(flags, 0),
+            *((row(fields, k) for k in range(4)) if emit_fields else (None,) * 4),
+            row(flags, 1) if emit_fields else None, flat_counts.data_ptr(), stream,
+        )
+    _cuda.check(code, name)
+    LAUNCHES[name] += 1
+    # Per-octave views: one split per buffer, one view (and unbind) a part.
+    sizes = [p.size for p in plans]
+    shapes = [(b, s - 2, p.h - 2, slots) for p in plans]
+    cands = cand.split(sizes)
+    flag_parts = flags.view(torch.bool).split(sizes, dim=1)
+    field_parts = fields.split(sizes, dim=1) if emit_fields else None
+    per_octave = flat_counts[:-1].view(3, len(dogs), b).unbind(1)
+    out = []
+    for o, shape in enumerate(shapes):
+        fl = flag_parts[o].view(-1, *shape).unbind(0)
+        n_raw, n_soft, n_drop = per_octave[o].unbind(0)
+        out.append(Candidates(
+            cand_col=cands[o].view(shape),
+            slot_ok=fl[0],
+            cand_fields=field_parts[o].view(4, *shape).unbind(0) if emit_fields else None,
+            cand_edge=fl[1] if emit_fields else None,
+            n_raw=n_raw,
+            n_soft=n_soft,
+            n_row_dropped=n_drop,
+        ))
+    return out
+
+
 def detect_candidates(
     dog: torch.Tensor,
     soft_threshold: float,
     edge_threshold: float,
     slots: int = 6,
     emit_fields: bool = True,
+    band_rows: int = BAND_ROWS,
 ) -> Candidates:
-    """[B, S, H, W] fp32 DoG -> :class:`Candidates` (see module doc)."""
-    name = "detect_candidates" if emit_fields else "detect_candidates_lean"
-    if not use_kernel(dog, name):
-        return detect_candidates_plain(
-            dog, soft_threshold, edge_threshold, slots, emit_fields
-        )
-    require(dog, name)
-    if not 1 <= slots <= 32:
-        raise ValueError(f"{name}: slots={slots} outside [1, 32]")
-    if dog.ndim != 4 or min(dog.shape[1:]) < 3:
-        raise ValueError(f"{name}: expected [B, S>=3, H>=3, W>=3], got {tuple(dog.shape)}")
-    b, s, h, w = dog.shape
-    dev = dog.device
-    shape = (b, s - 2, h - 2, slots)
-    cand = torch.empty(shape, dtype=torch.int32, device=dev)
-    ok = torch.empty(shape, dtype=torch.uint8, device=dev)
-    counts = torch.zeros((3, b), dtype=torch.int32, device=dev)
-    count_ptrs = [counts[k].data_ptr() for k in range(3)]
-    f = edge = None
-    with _cuda.launch_on(dog) as stream:
-        lib = _cuda.library("detect")
-        if emit_fields:
-            f = tuple(torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(4))
-            edge = torch.empty(shape, dtype=torch.uint8, device=dev)
-            r = edge_threshold
-            code = lib.detect_candidates(
-                dog.data_ptr(), b, s, h, w, float(soft_threshold),
-                float((r + 1.0) ** 2 / r), slots, cand.data_ptr(), ok.data_ptr(),
-                *(a.data_ptr() for a in f), edge.data_ptr(), *count_ptrs, stream,
-            )
-            edge = edge.bool()
-        else:
-            code = lib.detect_candidates_lean(
-                dog.data_ptr(), b, s, h, w, float(soft_threshold), slots,
-                cand.data_ptr(), ok.data_ptr(), *count_ptrs, stream,
-            )
-    _cuda.check(code, name)
-    LAUNCHES[name] += 1
-    return Candidates(
-        cand_col=cand,
-        slot_ok=ok.bool(),
-        cand_fields=f,
-        cand_edge=edge,
-        n_raw=counts[0],
-        n_soft=counts[1],
-        n_row_dropped=counts[2],
-    )
+    """[B, S, H, W] fp32 DoG -> :class:`Candidates`: the launch of
+    :func:`detect_candidates_octaves` over one octave."""
+    if dog.ndim != 4:
+        raise ValueError(f"detect_candidates: expected [B, S, H, W], got {tuple(dog.shape)}")
+    return detect_candidates_octaves(
+        [dog], soft_threshold, edge_threshold, slots, emit_fields, band_rows)[0]

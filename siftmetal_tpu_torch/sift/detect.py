@@ -20,7 +20,7 @@ from typing import Dict, List, NamedTuple, Sequence, Tuple
 import torch
 
 from ..config import SiftConfig
-from ..ops.kernels.detect import Candidates, detect_candidates, edge_ok, taylor_step
+from ..ops.kernels.detect import Candidates, detect_candidates_octaves, edge_ok, taylor_step
 
 
 class OctaveKeypoints(NamedTuple):
@@ -290,18 +290,14 @@ def _refine_batched(
 def detect_all_octaves_batch(
     dogs: Sequence[torch.Tensor], config: SiftConfig
 ) -> Tuple[List[OctaveKeypoints], Dict[str, torch.Tensor]]:
-    """Detection over all octaves: the detection kernel per octave, then
-    one fused cross-octave tail. Returns (per-octave keypoint slot lists
-    [B, m_o + k_move], aggregate counters [B])."""
-    outs, shapes = [], []
-    for dog in dogs:
-        outs.append(
-            detect_candidates(
-                dog, 0.8 * config.dog_threshold, config.edge_threshold,
-                emit_fields=config.detect_slot_fields,
-            )
-        )
-        shapes.append(tuple(dog.shape[-2:]))
+    """Detection over all octaves: one detection launch over every octave,
+    then one fused cross-octave tail. Returns (per-octave keypoint slot
+    lists [B, m_o + k_move], aggregate counters [B])."""
+    outs = detect_candidates_octaves(
+        dogs, 0.8 * config.dog_threshold, config.edge_threshold,
+        emit_fields=config.detect_slot_fields,
+    )
+    shapes = [tuple(dog.shape[-2:]) for dog in dogs]
     k_move = mover_budget_all(config, shapes)
     return _tail_all_octaves(outs, dogs, tuple(shapes), config, k_move)
 

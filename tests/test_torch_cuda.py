@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from siftmetal_tpu_torch.config import SiftConfig
+from siftmetal_tpu_torch.config import FAST_CONFIG, SiftConfig
 from siftmetal_tpu_torch.ops import gaussian as PG
 from siftmetal_tpu_torch.ops.kernels import LAUNCHES
 from siftmetal_tpu_torch.ops.kernels import pyramid as PP
@@ -25,7 +25,10 @@ from siftmetal_tpu_torch.ops.kernels.cascade import (
     octave_cascade_plain,
 )
 from siftmetal_tpu_torch.ops.kernels.detect import (
+    BAND_ROW_CHOICES,
+    BAND_ROWS,
     detect_candidates,
+    detect_candidates_octaves,
     detect_candidates_plain,
 )
 from siftmetal_tpu_torch.ops.kernels.patches import (
@@ -38,6 +41,7 @@ from siftmetal_tpu_torch.ops.kernels.patches import (
 from siftmetal_tpu_torch.sift import describe as PDS
 
 CFG = SiftConfig()
+FAST = FAST_CONFIG
 
 
 @pytest.fixture
@@ -90,6 +94,122 @@ def test_detect_kernel_matches_plain(cuda_dev):
         assert torch.equal(getattr(got, name), getattr(ref, name)), name
     for g, r in zip(got.cand_fields, ref.cand_fields):
         assert torch.equal(g, r)
+
+
+def _noise_octaves(seed, shapes, b, s, dev, sd=0.02):
+    """Per-octave noise DoGs: at the 0.8 x 0.0133 threshold many rows hold
+    more soft extrema than their slots."""
+    rng = np.random.default_rng(seed)
+    return [_t(rng.normal(0, sd, (b, s, h, w)).astype(np.float32), dev) for h, w in shapes]
+
+
+def _assert_octaves_equal_plain(dogs, slots=6, emit_fields=True, band_rows=BAND_ROWS):
+    """One launch over ``dogs`` against the plain version octave by
+    octave: every output bit for bit, flags bool."""
+    n0 = LAUNCHES["detect_candidates" if emit_fields else "detect_candidates_lean"]
+    got = detect_candidates_octaves(dogs, 0.8 * 0.0133, 10.0, slots, emit_fields, band_rows)
+    assert LAUNCHES["detect_candidates" if emit_fields else "detect_candidates_lean"] == n0 + 1
+    dropped = 0
+    for g, d in zip(got, dogs):
+        ref = detect_candidates_plain(d, 0.8 * 0.0133, 10.0, slots, emit_fields)
+        for name in ("cand_col", "slot_ok", "n_raw", "n_soft", "n_row_dropped"):
+            assert torch.equal(getattr(g, name), getattr(ref, name)), name
+        assert g.slot_ok.dtype == torch.bool
+        if emit_fields:
+            assert g.cand_edge.dtype == torch.bool and torch.equal(g.cand_edge, ref.cand_edge)
+            for a, r in zip(g.cand_fields, ref.cand_fields):
+                assert torch.equal(a, r)
+        dropped += int(g.n_row_dropped.sum())
+    return got, dropped
+
+
+def _octave_shapes(cfg, h, w):
+    return cfg.octave_shapes(h, w, cfg.num_octaves(h, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit_fields", [True, False])
+@pytest.mark.parametrize("where", ["parity_640x480", "fast_640x480", "butterfly"])
+def test_detect_octaves_match_plain(cuda_dev, where, emit_fields):
+    """Every octave of a batch in one launch (B 2 at 640x480; B 1 at the
+    butterfly's 340x512, down to a 10x16 octave) equals the plain version
+    octave by octave, with full rows exercised."""
+    shapes, b = {
+        "parity_640x480": (_octave_shapes(CFG, 480, 640), 2),
+        "fast_640x480": (_octave_shapes(FAST, 480, 640), 2),
+        "butterfly": (_octave_shapes(CFG, 340, 512) + ((10, 16),), 1),
+    }[where]
+    dogs = _noise_octaves(12, shapes, b, 5, cuda_dev)
+    _, dropped = _assert_octaves_equal_plain(dogs, emit_fields=emit_fields)
+    assert dropped > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_dog,slots", [(4, 1), (4, 32), (6, 1), (6, 32), (3, 6), (8, 6)])
+def test_detect_octaves_scales_and_slots(cuda_dev, n_dog, slots):
+    """Other DoG plane counts and the slot range's ends; widths that are
+    no multiple of a chunk (or of 4: 4-byte copies), octaves whose
+    interior is shorter than a band."""
+    shapes = ((70, 333), (35, 166), (17, 83), (8, 41), (5, 7))
+    dogs = _noise_octaves(13, shapes, 2, n_dog, cuda_dev)
+    for emit_fields in (True, False):
+        _assert_octaves_equal_plain(dogs, slots=slots, emit_fields=emit_fields)
+
+
+@pytest.mark.cuda
+def test_detect_band_heights_agree(cuda_dev):
+    """Every band height the kernel is built for gives the same outputs,
+    and a dense field drops soft extrema at every one."""
+    dogs = _noise_octaves(14, ((130, 300), (65, 150), (7, 10)), 2, 5, cuda_dev)
+    for r in BAND_ROW_CHOICES:
+        _, dropped = _assert_octaves_equal_plain(dogs, band_rows=r)
+        assert dropped > 0
+
+
+@pytest.mark.cuda
+def test_detect_octaves_on_views_and_offsets(cuda_dev):
+    """An octave that starts 4 bytes into its storage takes the 4-byte
+    copies and still agrees; detect_candidates is the one-octave launch."""
+    rng = np.random.default_rng(15)
+    store = _t(rng.normal(0, 0.02, 2 * 5 * 40 * 64 + 1).astype(np.float32), cuda_dev)
+    odd = store[1:].view(2, 5, 40, 64)
+    _assert_octaves_equal_plain([odd])
+    one = detect_candidates(odd, 0.8 * 0.0133, 10.0)
+    many = detect_candidates_octaves([odd], 0.8 * 0.0133, 10.0)[0]
+    assert torch.equal(one.cand_col, many.cand_col)
+
+
+@pytest.mark.cuda
+def test_detect_ignores_nan_neighbours_as_fmaxf_does(cuda_dev):
+    """NaN samples: the test is max/min over the non-NaN neighbours, seeded
+    with -inf / +inf (np.fmax / np.fmin, as CUDA's fmaxf / fminf), so a
+    sample whose 26 neighbours are all NaN is a raw extremum; NaN centres
+    never are."""
+    rng = np.random.default_rng(16)
+    dog = rng.normal(0, 0.02, (1, 5, 24, 40)).astype(np.float32)
+    dog[0, :, 5:12, 6:14] = np.nan
+    dog[0, 2, 8, 10] = 0.5                           # all 26 neighbours NaN
+    dog[0, 1, 15, 20] = np.nan
+    hi = np.full((3, 22, 38), -np.inf, np.float32)
+    lo = np.full((3, 22, 38), np.inf, np.float32)
+    for ds in (-1, 0, 1):
+        for di in (-1, 0, 1):
+            for dj in (-1, 0, 1):
+                if ds == di == dj == 0:
+                    continue
+                n = dog[0, 1 + ds:4 + ds, 1 + di:23 + di, 1 + dj:39 + dj]
+                hi, lo = np.fmax(hi, n), np.fmin(lo, n)
+    c = dog[0, 1:4, 1:23, 1:39]
+    raw = (c > hi) | (c < lo)
+    soft = raw & (np.abs(c) > 0.8 * 0.0133)
+    got = detect_candidates(_t(dog, cuda_dev), 0.8 * 0.0133, 10.0, slots=32)
+    assert raw[1, 7, 9] and int(got.n_raw[0]) == int(raw.sum())
+    assert int(got.n_soft[0]) == int(soft.sum())
+    cols = [np.flatnonzero(soft[s, r])[:32] for s in range(3) for r in range(22)]
+    ok = got.slot_ok[0].cpu().numpy().reshape(66, 32)
+    cand = got.cand_col[0].cpu().numpy().reshape(66, 32)
+    for k, want in enumerate(cols):
+        assert ok[k].sum() == len(want) and (cand[k][: len(want)] == want).all()
 
 
 @pytest.mark.cuda
@@ -592,6 +712,9 @@ def test_wrappers_do_not_fall_back(cuda_dev, monkeypatch):
     with pytest.raises(RuntimeError, match="unavailable"):
         detect_candidates(torch.zeros((1, 5, 16, 16), device=cuda_dev), 0.01, 10.0,
                           emit_fields=False)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        detect_candidates_octaves([torch.zeros((1, 5, 16, 16), device=cuda_dev),
+                                   torch.zeros((1, 5, 8, 8), device=cuda_dev)], 0.01, 10.0)
     fields = prepare_patch_fields(torch.zeros((1, 6, 32, 32), device=cuda_dev), CFG)
     one = lambda v, dt: torch.full((1,), v, dtype=dt, device=cuda_dev)
     lane = (one(1, torch.int32), one(16.0, torch.float32), one(16.0, torch.float32),

@@ -301,8 +301,8 @@ def calls(monkeypatch):
 
         def wrapper(*a, **kw):
             tag = label or name
-            if name == "detect_candidates" and not kw.get("emit_fields", True):
-                tag = "detect_candidates_lean"
+            if name == "detect_candidates_octaves":
+                tag = "detect_candidates" if kw.get("emit_fields", True) else "detect_candidates_lean"
             if name == "blur_stack" and a[0].dtype == torch.bfloat16:
                 tag = "blur_stack_bf16"
             if name == "blur_cascade" and a[2]:
@@ -323,7 +323,7 @@ def calls(monkeypatch):
     spy(PB, "octave_cascade")
     spy(PB, "blur_cascade")
     spy(PPy, "blur_stack")
-    spy(PD, "detect_candidates")
+    spy(PD, "detect_candidates_octaves")
     spy(PB, "orientation_hist_lanes")
     spy(PB, "descriptor_lanes")
     spy(PB, "orient_desc_lanes")
@@ -399,13 +399,16 @@ DESCRIBE_ROUTES = {
 @pytest.mark.parametrize("name", sorted(DESCRIBE_ROUTES))
 def test_detect_and_describe_routing_follows_config(calls, name):
     """Each switch changes the wrappers taken, and the variants return the
-    default route's keypoints and (as a set) its descriptors."""
+    default route's keypoints and (as a set) its descriptors. Detection is
+    one call over every octave of the batch; the patch wrappers one call
+    an octave."""
     cfg, used, unused = DESCRIBE_ROUTES[name]
     crop = _gray()[150:214, 300:396]
     kp, ds, ctr = SIFT(64, 96, cfg, device="cpu").extract(crop)
     n_oct = cfg.num_octaves(64, 96)
     for key in used:
-        assert calls.count(key) == n_oct, (key, calls)
+        want = 1 if key.startswith("detect_candidates") else n_oct
+        assert calls.count(key) == want, (key, calls)
     for key in unused:
         assert calls.count(key) == 0, (key, calls)
     calls.clear()
