@@ -21,10 +21,14 @@ Phases, in order; any failure exits non-zero and prints no result:
     launched twice and equal bit for bit, with their registers, stack
     frame and spills from the build log; detection also over every octave
     of the parity batch in one launch, field by field against the plain
-    version per octave and on dense rows, with the band-height sweep);
+    version per octave and on dense rows, with the band-height sweep; the
+    orientation kernel also over every octave of the parity batch in one
+    launch, bit for bit against one launch an octave and the resident
+    form; the fused cascade also beside a cuDNN yardstick, its library_ms);
  3. main path: SIFT(480, 640).extract_batch on 8 seeded noise frames (as
     bench.py makes them), with every launch counter set to 0 just before
-    and read just after (pyramid and detection launches checked exactly);
+    and read just after (pyramid, detection and orientation launches
+    checked exactly);
     frames/s from CUDA events;
  4. fast path: SIFT(480, 640, config=FAST_BF16_CONFIG).extract_batch on
     the same frames and match_bruteforce over the 4 frame pairs, counters
@@ -393,10 +397,131 @@ def phase_kernels(peaks):
     ops = {"orientation": reports["orientation_hist"].ops, "descriptor": reports["descriptor_hist"].ops}
     _resident_kernels(reports, peaks, fields, cfg,
                       (ori_args, valid, frame, hk, hp), (d_args, dvalid, frame_l, dk, dp), ops)
+    _orientation_batch(gray, cfg, reports["orientation_hist"], peaks)
     del dk, dp, hk, hp
     _slice2_kernels(reports, peaks, gray, g0, d0, cd, fields, kpc, frame, ori_args, valid,
                     n_ori_samples)
     return reports
+
+
+def _orientation_batch(gray, cfg, rep, peaks):
+    """The orientation kernel over every octave of the parity batch in one
+    launch (the staged describe stage's call): equal bit for bit to one
+    launch an octave and to the resident form (row 9a) octave by octave,
+    within the row's tolerance of the plain version; its device time beside
+    the per-octave launches' and the bound summed over the octaves, and the
+    octave-0 launch's device time beside the row's bound."""
+    import dataclasses
+
+    import torch
+
+    from siftmetal_tpu_torch.ops.kernels import patches as KP
+    from siftmetal_tpu_torch.sift import describe as DS
+    from siftmetal_tpu_torch.sift import detect as DT
+    from siftmetal_tpu_torch.sift.batched import build_pyramid_batch
+
+    gauss, dogs = build_pyramid_batch(gray, cfg, cfg.num_octaves(*gray.shape[-2:]))
+    per_octave, _ = DT.detect_all_octaves_batch(dogs, cfg)
+    kpcs, fields = [], []
+    for o, d in enumerate(dogs):
+        budget = DT.keypoint_budget(cfg, tuple(d.shape[-2:]), o)
+        kpcs.append(DT.compact_octave_keypoints(per_octave[o], o, cfg, budget)[0])
+        fields.append(KP.prepare_patch_fields(gauss[o], cfg))
+    del gauss, dogs
+    b = gray.shape[0]
+    band = dataclasses.replace(cfg, use_band_patches=True)
+    fl = lambda a: a.reshape(-1)
+
+    def octave_args(k):
+        frame = torch.arange(b, dtype=torch.int32, device=gray.device).repeat_interleave(
+            k.valid.shape[1])
+        return (fl(k.scale), fl(k.x_oct), fl(k.y_oct), fl(k.sigma_oct)), fl(k.valid), frame
+
+    def per_octave_launches(c):
+        rows = []
+        for f, k in zip(fields, kpcs):
+            lanes, valid, frame = octave_args(k)
+            rows.append(KP.orientation_hist_lanes(f, *lanes, c, valid=valid, frame=frame)
+                        .reshape(b, k.valid.shape[1], -1))
+        return torch.cat(rows, 1)
+
+    one = lambda: KP.orientation_hist_octaves(fields, kpcs, cfg)
+    got = one()
+    _require(torch.equal(got, per_octave_launches(cfg)),
+             "orientation_hist_octaves differs from one launch an octave")
+    _require(torch.equal(got, per_octave_launches(band)),
+             "orientation_hist_octaves differs from the resident form")
+    plain, samples, nbytes, lanes_n = [], 0.0, 0.0, 0
+    for f, k in zip(fields, kpcs):
+        (scale, x, y, sg), valid, frame = octave_args(k)
+        plain.append(DS.orientation_hist_plain(f.gi, f.gj, frame.long(), scale.long(), x, y, sg,
+                                               valid, cfg).reshape(b, k.valid.shape[1], -1))
+        r_max = 3.0 * cfg.orientation_lambda * sg
+        n_s, cov = _box_samples(x, y, r_max, r_max, valid, frame, scale, *f.gi.shape[-2:], b, cfg)
+        samples += n_s
+        nbytes += 4.0 * (2 * cov + 5 * valid.numel() + valid.numel() * cfg.n_orientation_bins)
+        lanes_n += int(valid.sum())
+    plain = torch.cat(plain, 1)
+    rel = float(((got - plain).abs().amax(-1) / plain.abs().amax(-1).clamp(min=1e-12)).max())
+    _require(rel <= rep.tol, f"orientation_hist_octaves: rel {rel:.3e} from the plain version")
+    frag = ("::orientation_kernel",)
+    dev_one = _device_ms(one, frag)[frag[0]]
+    dev_per = _device_ms(lambda: per_octave_launches(cfg), frag)[frag[0]]
+    bound = max(nbytes / peaks[0], ORI_OPS * samples / peaks[1]) * 1e3
+    lanes0, valid0, frame0 = octave_args(kpcs[0])
+    dev0 = _device_ms(lambda: KP.orientation_hist_lanes(fields[0], *lanes0, cfg, valid=valid0,
+                                                        frame=frame0), frag)[frag[0]]
+    print(f"[kernel] orientation_hist over the {len(kpcs)} parity octaves in one launch "
+          f"({lanes_n} valid lanes of {sum(k.valid.numel() for k in kpcs)}): equal to one launch "
+          f"an octave and to the resident form bit for bit, rel {rel:.3e} from the plain version; "
+          f"{dev_one:.4f} ms of device time (the {len(kpcs)} per-octave launches {dev_per:.4f}), "
+          f"queued call {_queued_ms(one):.4f} ms, host's clock {_time_ms(one, 10):.4f} ms; bound "
+          f"{bound:.4f} ms; the octave-0 launch {dev0:.4f} ms of device time against the row's "
+          f"bound {rep.row['bound_ms']:.4f} ms; {_ptxas_line('18orientation_kernelENS_9OriLaunch')}",
+          flush=True)
+
+
+def _cascade_library(first, cfg):
+    """The fused cascade's function through cuDNN, a yardstick the port
+    never calls: first [B, H, W] extended once by the total radius (the
+    half-sample reflection), each slice one separable F.conv2d (X, then Y)
+    of it with the slice's composed taps (the stage taps convolved in
+    float64), the DoG a subtraction; TF32 off."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from siftmetal_tpu_torch.ops.kernels import cascade as KC
+
+    taps, radii = KC.cascade_taps(cfg)
+    b, h, w = first.shape
+    R = int(radii.sum())
+    rows = torch.from_numpy(_reflect_index(h, R)).to(first.device)
+    cols = torch.from_numpy(_reflect_index(w, R)).to(first.device)
+    ext = first.index_select(1, rows).index_select(2, cols)[:, None]
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        slices, k = [first], np.ones(1)
+        for s, r in enumerate(radii):
+            k = np.convolve(k, taps[s, : 2 * int(r) + 1].astype(np.float64))
+            m = len(k) // 2
+            t = torch.from_numpy(k.astype(np.float32)).to(first.device)
+            x = F.conv2d(ext[:, :, R - m:R + h + m, :], t.view(1, 1, 1, -1))
+            y = F.conv2d(x, t.view(1, 1, -1, 1))
+            slices.append(y[:, 0, :, R - m:R - m + w])
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    stack = torch.stack(slices, 1)
+    return stack, stack[:, 1:] - stack[:, :-1]
+
+
+def _reflect_index(n, r):
+    """Indices of [-r, n + r) under the period-2n half-sample reflection."""
+    import numpy as np
+
+    m = np.mod(np.arange(-r, n + r), 2 * n)
+    return np.where(m < n, m, 2 * n - 1 - m).astype(np.int64)
 
 
 def _detect_batch(peaks, gray, cfg):
@@ -744,13 +869,20 @@ def _slice2_kernels(reports, peaks, gray, g0, d0, cd, fields, kpc, frame, ori_ar
                  "siftmetal_tpu/ops/pallas/cascade.py:52", 1e-5)
     _, radii = KC.cascade_taps(cfg)
     per_px = 4.0 * float((2 * radii + 1).sum()) + len(radii)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     seed0 = seed_image(gray, cfg)                          # [8, 960, 1280]
     gc, dc = KC.octave_cascade(seed0, cfg)
     gp, dp = KC.octave_cascade_plain(seed0, cfg)
     err = max(_max_err(gc, gp), _max_err(dc, dp))
     del gp, dp
+    gl, dl = _cascade_library(seed0, cfg)
+    lib_err = max(_max_err(gc, gl), _max_err(dc, dl))
+    del gl, dl
+    frag = ("stream_kernel",)
     rep.row["ms"] = _time_ms(lambda: KC.octave_cascade(seed0, cfg), 5)
     rep.row["plain_ms"] = _time_ms(lambda: KC.octave_cascade_plain(seed0, cfg), 1)
+    rep.row["library_ms"] = _time_ms(lambda: _cascade_library(seed0, cfg), 3)
+    dev0 = _device_ms(lambda: KC.octave_cascade(seed0, cfg), frag)[frag[0]]
     staged0 = _time_ms(lambda: cascade_slices(seed0, 0, cfg), 5)
     rep.bound(f4 * (seed0.numel() + gc.numel() + dc.numel()), per_px * seed0.numel(), peaks)
     seed1 = decimate_2x(gc[:, cfg.n_scales_per_octave], (h, w)).contiguous()
@@ -759,14 +891,23 @@ def _slice2_kernels(reports, peaks, gray, g0, d0, cd, fields, kpc, frame, ori_ar
     g1p, d1p = KC.octave_cascade_plain(seed1, cfg)
     err = max(err, _max_err(g1c, g1p), _max_err(d1c, d1p))
     ms1 = _time_ms(lambda: KC.octave_cascade(seed1, cfg), 10)
+    dev1 = _device_ms(lambda: KC.octave_cascade(seed1, cfg), frag)[frag[0]]
     pl1 = _time_ms(lambda: KC.octave_cascade_plain(seed1, cfg), 2)
+    lib1 = _time_ms(lambda: _cascade_library(seed1, cfg), 5)
     staged1 = _time_ms(lambda: cascade_slices(seed1, 0, cfg), 10)
     bound1 = max(f4 * (seed1.numel() + g1c.numel() + d1c.numel()) / peaks[0],
                  per_px * seed1.numel() / peaks[1]) * 1e3
-    print(f"[kernel] octave_cascade at {b}x{h}x{w}: {ms1:.4f} ms vs plain {pl1:.4f} ms; "
-          f"bound {bound1:.4f} ms; tile {KC.cascade_tile(cfg)}, total radius {int(radii.sum())}; "
-          f"the five blur_stack launches it replaces take {staged1:.4f} ms here and "
-          f"{staged0:.4f} ms at {b}x{H}x{W}, the row below", flush=True)
+    p0 = KC.cascade_plan(cfg, *seed0.shape, sms=sms)
+    p1 = KC.cascade_plan(cfg, *seed1.shape, sms=sms)
+    print(f"[kernel] octave_cascade at {b}x{H}x{W}: {dev0:.4f} ms of device time (strip "
+          f"{p0.strip}, band {p0.band}: {p0.strips * p0.bands * b} blocks, "
+          f"{KC.blocks_per_sm(p0.smem)} an SM, {p0.smem} B of shared memory); at {b}x{h}x{w}: "
+          f"{ms1:.4f} ms ({dev1:.4f} of device time; band {p1.band}) vs plain {pl1:.4f} ms, cuDNN "
+          f"yardstick {lib1:.4f} ms; bound {bound1:.4f} ms; total radius {int(radii.sum())}; the "
+          f"five blur_stack launches it replaces take {staged1:.4f} ms here and {staged0:.4f} ms "
+          f"at {b}x{H}x{W}, the row below (library_ms: F.conv2d of each slice's composed taps, X "
+          f"then Y, on the plane extended once, TF32 off; max {lib_err:.3e} from the kernel); "
+          f"{_ptxas_line('13stream_kernelINS_7DefaultE')}", flush=True)
     del g1c, d1c, g1p, d1p, seed0, seed1
     add(rep, err)
 
@@ -985,6 +1126,9 @@ FAST_PYRAMID = {"seed_octave_bf16": 1, "octave_oneshot_bf16": 1, "blur_cascade_b
 # Detection launches of one extract_batch: every octave in one launch.
 PARITY_DETECT = {"detect_candidates": 1, "detect_candidates_lean": 0}
 LEAN_DETECT = {"detect_candidates": 0, "detect_candidates_lean": 1}
+# Orientation launches of one extract_batch (staged describe stage): every
+# octave in one launch.
+ONE_ORIENTATION = {"orientation_hist": 1}
 
 
 def _require_launches(tag, launches, want, what="pyramid"):
@@ -1077,6 +1221,7 @@ def phase_main_path(reports, smi_line):
     _, descs, ctr, launches, _ = _drive("main", sift, x, PARITY_KERNELS, reports)
     _require_launches("main", launches, PARITY_PYRAMID)
     _require_launches("main", launches, PARITY_DETECT, "detection")
+    _require_launches("main", launches, ONE_ORIENTATION, "orientation")
     # Frame 0 alone gives frame 0's batched result.
     _, d1, c1 = sift.extract(x[0])
     _require(all(int(c1[k]) == ctr[k][0] for k in c1), "batched != single-frame counters")
@@ -1128,6 +1273,7 @@ def phase_fast_path(reports, parity_ctr, smi_line):
                                         may_overflow=True)
     _require_launches("fast", fl, FAST_PYRAMID)
     _require_launches("fast", fl, PARITY_DETECT, "detection")
+    _require_launches("fast", fl, ONE_ORIENTATION, "orientation")
     nq = sift.config.max_descriptors
     for (i, j), (mt, score) in zip(pairs, matched):
         _require(mt.target_idx.shape == (nq,) and mt.target_idx.dtype == torch.int32,
@@ -1209,6 +1355,8 @@ def phase_fast_path(reports, parity_ctr, smi_line):
                   "fused": ("orientation_hist", "descriptor_hist")}[tag]
         _require(all(vl[k] == 0 for k in unused), f"{tag}: still launched {unused}: {vl}")
         _require_launches(tag, vl, LEAN_DETECT if tag == "lean" else PARITY_DETECT, "detection")
+        if tag != "fused":
+            _require_launches(tag, vl, ONE_ORIENTATION, "orientation")
         stages = ("n_extrema", "n_soft", "n_interp", "n_hard", "n_edge", "n_border")
         if tag == "cascade":
             # Another order of the same blurs: counts within 1% of the
@@ -1230,7 +1378,7 @@ def phase_fast_path(reports, parity_ctr, smi_line):
         for _ in range(2):
             t += _windows(lambda: sv.extract_batch(x), 1, 5)
             t += _windows(lambda: parity.extract_batch(x), 1, 5)
-        if tag == "fused":
+        if tag in ("fused", "cascade"):
             _profile(tag, lambda: sv.extract_batch(x))
         print(f"[{tag}] extract_batch 8x480x640 in turns with the default route (ms/batch): "
               f"{tag} {t[0]:.3f}, default {t[1]:.3f}, {tag} {t[2]:.3f}, default {t[3]:.3f}; "
@@ -1544,7 +1692,7 @@ def _profile(tag, fn):
         print(f"[profile {tag}] patch kernels: {json.dumps(sums)}", flush=True)
     pyr = {}
     for form, frag in {"band tiles": "band_tiles_kernel", "blur cascade": "blur_cascade_kernel",
-                       "fused cascade": "::cascade_kernel(", "band_x": "band_x_kernel",
+                       "fused cascade": "stream_kernel", "band_x": "band_x_kernel",
                        "band_y": "band_y_kernel"}.items():
         hit = [v for k, v in per.items() if frag in k]
         if hit:

@@ -20,13 +20,18 @@
 // samples outside the image contribute nothing (IPOL's rule, which the
 // TPU reproduced with zero padding). Invalid lanes write zeros.
 //
-// Orientation layout: one block per lane; threads stride over the sample
-// box, which is cut to the sigma-dependent window (never wider than the
-// static radius). Each thread adds into its own histogram column in
-// shared memory ([bin][thread], so thread t always hits bank t % 32 and no
-// atomics are needed); the columns are summed in a fixed order at the end,
-// so a run repeats bit for bit. atan2f is used directly (the TPU needed a
-// polynomial).
+// Orientation layout: every octave of a batch in one launch (an octave
+// table in the kernel's parameter). A resident grid of blocks of 128
+// threads scans the lanes 32 at a time, zeroing the invalid ones and
+// queueing the valid ones, then takes queued lanes one at a time; a valid
+// lane gets the whole block: threads stride over
+// the sample box, which is cut to the sigma-dependent window (never wider
+// than the static radius). Each thread adds into its own histogram column
+// in shared memory ([bin][thread], so thread t always hits bank t % 32 and
+// no atomics are needed); the columns are summed in a fixed order at the
+// end, so a run repeats bit for bit. atan2f is used directly (the TPU
+// needed a polynomial); its result lies in [-pi, pi], so the floor-mod by
+// 2 pi and the bin's wrap are one conditional each.
 //
 // Descriptor layout: a lane is split over kParts warps (8 for the (4, 8)
 // shape, the only one any preset uses; one block a lane), each warp taking
@@ -117,6 +122,9 @@ namespace {
 constexpr double kPi = 3.14159265358979323846;
 constexpr float kTwoPi = 6.28318548202514648f;  // fp32(2 pi)
 
+constexpr int kOriThreads = 128;  // an orientation histogram's threads
+constexpr unsigned kFullWarp = 0xffffffffu;
+
 __device__ __forceinline__ float mod_2pi(float a) {
   // Floor-mod with the divisor's sign (jnp.mod / torch.remainder).
   float m = fmodf(a, kTwoPi);
@@ -124,17 +132,31 @@ __device__ __forceinline__ float mod_2pi(float a) {
   return m;
 }
 
+// mod_2pi of an atan2f result, which lies in [-pi, pi] (fp32 pi < 2 pi):
+// fmodf leaves it as it is, so the floor-mod is one conditional add. Equal
+// to mod_2pi there, -0 and NaN included (neither is < 0).
+__device__ __forceinline__ float wrap_angle(float a) {
+  return a < 0.f ? a + kTwoPi : a;
+}
+
+// ((bin % n) + n) % n for a bin rint(th * n / 2 pi) of th = wrap_angle(..)
+// in [0, 2 pi) (NaN converts to 0): the bin lies in [0, n], so only n wraps.
+__device__ __forceinline__ int wrap_bin(int bin, int n) {
+  return bin == n ? 0 : bin;
+}
+
 struct Lane {
   int f, s, ci, cj;
   float x, y, sg;
 };
 
-__device__ __forceinline__ Lane lane_of(int l, int B, int S, int H, int W,
-                                        const int* frame, const int* scale,
-                                        const float* x, const float* y,
-                                        const float* sigma) {
+// Lane l with frame index `fr` (clamped into the batch, as the scale is).
+__device__ __forceinline__ Lane lane_from(int l, int fr, int B, int S, int H,
+                                         int W, const int* scale,
+                                         const float* x, const float* y,
+                                         const float* sigma) {
   Lane ln;
-  ln.f = min(max(frame[l], 0), B - 1);
+  ln.f = min(max(fr, 0), B - 1);
   ln.s = min(max(scale[l], 1), S) - 1;
   ln.x = x[l];
   ln.y = y[l];
@@ -142,6 +164,13 @@ __device__ __forceinline__ Lane lane_of(int l, int B, int S, int H, int W,
   ln.ci = min(max((int)rintf(ln.x), 0), H - 1);
   ln.cj = min(max((int)rintf(ln.y), 0), W - 1);
   return ln;
+}
+
+__device__ __forceinline__ Lane lane_of(int l, int B, int S, int H, int W,
+                                        const int* frame, const int* scale,
+                                        const float* x, const float* y,
+                                        const float* sigma) {
+  return lane_from(l, frame[l], B, S, H, W, scale, x, y, sigma);
 }
 
 // The sample box of a lane: rows u0..u1, columns v0..v1 of its plane, the
@@ -209,50 +238,195 @@ __device__ __forceinline__ void orientation_accumulate(
     const int u = u0 + p / nv, v = v0 + p % nv;
     const float dm = (float)u - ln.x;
     const float dn = (float)v - ln.y;
-    if (!(fabsf(dm) <= r_max && fabsf(dn) <= r_max)) continue;
-    const int o = (u - fd.r0) * fd.pitch + (v - fd.c0);
-    const float a = fd.gi[o], b = fd.gj[o];
-    const float mag = sqrtf(a * a + b * b);
-    const float w = expf(-(dm * dm + dn * dn) / den) * mag;
-    const float th = mod_2pi(atan2f(b, a));
-    int bin = (int)rintf(th * bin_scale);
-    bin = ((bin % n_bins) + n_bins) % n_bins;
-    hist[bin * nt + tid] += w;
+    if (fabsf(dm) <= r_max && fabsf(dn) <= r_max) {
+      const int o = (u - fd.r0) * fd.pitch + (v - fd.c0);
+      const float a = fd.gi[o], b = fd.gj[o];
+      const float mag = sqrtf(a * a + b * b);
+      const float w = expf(-(dm * dm + dn * dn) / den) * mag;
+      const float th = wrap_angle(atan2f(b, a));
+      hist[wrap_bin((int)rintf(th * bin_scale), n_bins) * nt + tid] += w;
+    }
   }
 }
 
-// Sum of column k over the threads, in a fixed (bank-staggered) order.
-__device__ __forceinline__ float column_sum(const float* hist, int k, int nt) {
+// Sum of column k over the kOriThreads threads, in a fixed
+// (bank-staggered) order: thread (t + k) % 128 for t = 0..127, one fp32
+// chain (the order every orientation form shares, so they stay equal bit
+// for bit). The loads run ahead of the chain; four chains of 32 measured
+// no faster (PERF.md), the chain's latency hidden by other blocks.
+__device__ __forceinline__ float column_sum(const float* hist, int k) {
+  const float* col = hist + k * kOriThreads;
   float acc = 0.f;
-  for (int t = 0; t < nt; ++t) acc += hist[k * nt + (t + k) % nt];
+#pragma unroll 16
+  for (int t = 0; t < kOriThreads; ++t) acc += col[(t + k) & (kOriThreads - 1)];
   return acc;
 }
 
-__global__ void orientation_kernel(const float* __restrict__ gi,
-                                   const float* __restrict__ gj, int B, int S,
-                                   int H, int W, const uint8_t* __restrict__ valid,
-                                   const int* __restrict__ frame,
-                                   const int* __restrict__ scale,
-                                   const float* __restrict__ x,
-                                   const float* __restrict__ y,
-                                   const float* __restrict__ sigma, int radius,
-                                   int n_bins, float lam,
-                                   float* __restrict__ out) {
-  extern __shared__ float hist[];  // [n_bins][NT]
-  const int l = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  float* out_l = out + (long long)l * n_bins;
-  if (!valid[l]) {
-    for (int k = tid; k < n_bins; k += nt) out_l[k] = 0.f;
-    return;
+// --- Orientation: every octave of a batch in one launch --------------------
+//
+// A resident grid of blocks of kOriThreads threads works in two kinds of
+// task, both handed out by counters in a small work buffer. A scan takes
+// kOriScan lanes of one octave (octave by octave in table order, the
+// largest first): one warp reads their flags and queues the valid lanes,
+// and the block writes the zeros of the invalid ones, so the ~70% of
+// lanes that compaction left empty cost a share of one coalesced pass. A
+// block scans while scans are left, then pops queued lanes one at a time
+// and gives each the whole block: its threads add the lane's samples into
+// their own columns (orientation_accumulate) and the columns are summed
+// in column_sum's order. Popping lanes one by one keeps the blocks busy
+// to the end though compaction puts the valid lanes first in each frame's
+// budget; a counter drawn once a lane (the first design of this launch)
+// spent ~0.03 ms on its draws alone, and drawing the next lane's slot
+// ahead measured slower (PERF.md). Lanes are read from
+// each octave's own arrays, and row (frame f, slot k) of an octave is
+// written at out + (f row_stride + k) n_bins, so a batch's octaves land
+// in one [B, sum of budgets, n_bins] array.
+
+constexpr int kMaxOriOctaves = 16;
+constexpr int kOriScan = 32;  // lanes a scan: one warp's flags
+
+struct OriOctave {
+  const float* gi;  // [B, S, H, W]
+  const float* gj;
+  const uint8_t* valid;  // [lanes]
+  const int* frame;      // [lanes], or null: lane l is of frame l / budget
+  const int* scale;
+  const float* x;
+  const float* y;
+  const float* sigma;
+  float* out;  // the octave's first row
+  int B, S, H, W;
+  int lanes, budget, row_stride;
+  int scan0;  // first scan of the octave
+  int lane0;  // first lane of the octave in the launch's numbering
+};
+
+// The work buffer (zeroed before the launch): the next scan, the queue's
+// tail, the scans finished, the queue's head, then one slot a lane
+// holding the queued lane's number + 1 (0 until written).
+enum { kNextScan, kTail, kScansDone, kHead, kQueue };
+
+struct OriLaunch {
+  OriOctave oct[kMaxOriOctaves];
+  int n_oct, scans, lanes, radius, n_bins;
+  float lam;
+  int* work;
+};
+
+constexpr int kNoTask = -0x7fffffff;
+
+// Thread 0's next lane from the queue, or kNoTask once every scan has
+// finished and the queue holds no lane for this draw.
+__device__ int pop_lane(const OriLaunch& L) {
+  const int h = atomicAdd(L.work + kHead, 1);
+  if (h >= L.lanes) return kNoTask;
+  volatile int* w = L.work;
+  for (;;) {
+    const int v = w[kQueue + h];
+    if (v != 0) return v - 1;
+    if (w[kScansDone] == L.scans) {  // the tail is final
+      __threadfence();
+      const int again = w[kQueue + h];
+      if (again != 0) return again - 1;
+      if (w[kTail] <= h) return kNoTask;
+    }
+    __nanosleep(64);
   }
-  for (int k = 0; k < n_bins; ++k) hist[k * nt + tid] = 0.f;
-  const Lane ln = lane_of(l, B, S, H, W, frame, scale, x, y, sigma);
-  orientation_accumulate(hist, tid, nt, ln, plane_field(ln, gi, gj, S, H, W),
-                         H, W, radius, n_bins, lam);
-  __syncthreads();
-  for (int k = tid; k < n_bins; k += nt) out_l[k] = column_sum(hist, k, nt);
+}
+
+__device__ __forceinline__ int octave_of(const OriLaunch& L, int lane) {
+  int o = 0;
+  while (o + 1 < L.n_oct && lane >= L.oct[o + 1].lane0) ++o;
+  return o;
+}
+
+__device__ __forceinline__ float* row_of(const OriOctave& oc, int l, int n_bins) {
+  const int f = l / oc.budget;
+  return oc.out + ((long long)f * oc.row_stride + (l - f * oc.budget)) * n_bins;
+}
+
+__global__ void __launch_bounds__(kOriThreads)
+    orientation_kernel(const __grid_constant__ OriLaunch L) {
+  extern __shared__ float hist[];  // [n_bins][kOriThreads]
+  __shared__ int task, base;
+  __shared__ unsigned mask;
+  const int tid = threadIdx.x;
+  const int n_bins = L.n_bins;
+  bool scanning = true;  // thread 0: scans may be left
+  for (;;) {
+    if (tid == 0) {
+      int t = kNoTask;
+      if (scanning) {
+        const int c = atomicAdd(L.work + kNextScan, 1);
+        if (c < L.scans) t = -1 - c;
+        else scanning = false;
+      }
+      task = t != kNoTask ? t : pop_lane(L);
+    }
+    __syncthreads();
+    const int t = task;
+    __syncthreads();  // every thread has the task before the next draw
+    if (t == kNoTask) return;
+    if (t < 0) {  // scan -1 - t: queue the valid lanes, zero the others
+      const int c = -1 - t;
+      int o = 0;
+      while (o + 1 < L.n_oct && c >= L.oct[o + 1].scan0) ++o;
+      const OriOctave& oc = L.oct[o];
+      const int l0 = (c - oc.scan0) * kOriScan;
+      const int n = min(kOriScan, oc.lanes - l0);
+      if (tid < 32) {
+        const bool v = tid < n && oc.valid[l0 + tid];
+        const unsigned m = __ballot_sync(kFullWarp, v);
+        if (tid == 0) {
+          mask = m;
+          base = m ? atomicAdd(L.work + kTail, __popc(m)) : 0;
+        }
+        __syncwarp();
+        if (v)
+          L.work[kQueue + base + __popc(m & ((1u << tid) - 1))] =
+              oc.lane0 + l0 + tid + 1;
+        __threadfence();  // the queued lanes before the scan counts as done
+      }
+      __syncthreads();
+      const unsigned m = mask;
+      for (int i = tid; i < n * n_bins; i += kOriThreads) {
+        const int q = i / n_bins;
+        if (!((m >> q) & 1)) row_of(oc, l0 + q, n_bins)[i - q * n_bins] = 0.f;
+      }
+      if (tid == 0) atomicAdd(L.work + kScansDone, 1);
+      continue;
+    }
+    const OriOctave& oc = L.oct[octave_of(L, t)];
+    const int l = t - oc.lane0;
+    for (int k = 0; k < n_bins; ++k) hist[k * kOriThreads + tid] = 0.f;
+    const int f = l / oc.budget;
+    const Lane ln = lane_from(l, oc.frame != nullptr ? oc.frame[l] : f, oc.B,
+                              oc.S, oc.H, oc.W, oc.scale, oc.x, oc.y, oc.sigma);
+    orientation_accumulate(hist, tid, kOriThreads, ln,
+                           plane_field(ln, oc.gi, oc.gj, oc.S, oc.H, oc.W),
+                           oc.H, oc.W, L.radius, n_bins, L.lam);
+    __syncthreads();
+    float* out_l = row_of(oc, l, n_bins);
+    for (int k = tid; k < n_bins; k += kOriThreads) out_l[k] = column_sum(hist, k);
+    __syncthreads();  // the sums are read before the next lane zeroes them
+  }
+}
+
+// The old and the cheap wrap of an angle and of a bin, side by side, on
+// the gradients (gi, gj) of [n] samples: for the card test that holds the
+// two equal on signed zeros, +-pi and NaN.
+__global__ void wrap_pairs_kernel(const float* gi, const float* gj, int n,
+                                  int n_bins, float* th, int* bins) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float a = atan2f(gj[i], gi[i]);
+  const float bin_scale = (float)((double)n_bins / (2.0 * kPi));
+  const float t_old = mod_2pi(a), t_new = wrap_angle(a);
+  const int b_old = (int)rintf(t_old * bin_scale);
+  th[2 * i] = t_old;
+  th[2 * i + 1] = t_new;
+  bins[2 * i] = ((b_old % n_bins) + n_bins) % n_bins;
+  bins[2 * i + 1] = wrap_bin((int)rintf(t_new * bin_scale), n_bins);
 }
 
 constexpr int kMaxHist = 8;
@@ -260,7 +434,6 @@ constexpr int kMaxOri = 16;
 
 // --- Descriptor: Hist::kParts warps per lane ---------------------------------
 
-constexpr unsigned kFullWarp = 0xffffffffu;
 
 // The per-lane constants of IPOL Alg. 12.
 struct DescConst {
@@ -571,7 +744,6 @@ __global__ void __launch_bounds__(staged_warps<Hist>() * 32)
 
 constexpr int kMaxBins = 64;
 constexpr int kMaxPeaks = 8;
-constexpr int kOriThreads = 128;  // the staged orientation kernel's block
 
 // Bin k of a histogram held across a warp: slot k / 32 of thread k % 32.
 // Every thread of the warp calls it (two shuffles).
@@ -688,7 +860,7 @@ __global__ void __launch_bounds__(staged_warps<Hist>() * 32)
   }
   __syncthreads();
   for (int k = tid; k < n_bins; k += nt)
-    h_raw[k] = column_sum(cols, k, kOriThreads);
+    h_raw[k] = column_sum(cols, k);
   __syncthreads();
   if (w == 0) {
     const int np = warp_peaks(h_raw, n_bins, smooth_iters, peak_thr, max_ori,
@@ -935,7 +1107,7 @@ __global__ void __launch_bounds__(kOriThreads) resident_orientation_kernel(
         __syncthreads();
         float* out_l = out + (long long)l * n_bins;
         for (int k = tid; k < n_bins; k += kOriThreads)
-          out_l[k] = column_sum(cols, k, kOriThreads);
+          out_l[k] = column_sum(cols, k);
         __syncthreads();  // the sums are read before the next lane zeroes them
       }
     }
@@ -1068,18 +1240,73 @@ bool shape_ok(int n_hist, int n_ori) {
 
 }  // namespace
 
-extern "C" int orientation_hist(const float* gi, const float* gj, int B,
-                                int S, int H, int W, int L,
-                                const uint8_t* valid, const int* frame,
-                                const int* scale, const float* x,
-                                const float* y, const float* sigma,
-                                int radius, int n_bins, float lam, float* out,
-                                cudaStream_t stream) {
-  const int nt = 128;
-  if (L > 0)
-    orientation_kernel<<<L, nt, n_bins * nt * sizeof(float), stream>>>(
-        gi, gj, B, S, H, W, valid, frame, scale, x, y, sigma, radius, n_bins,
-        lam, out);
+// Orientation histograms of every octave in `table` (host, int64; ops/
+// kernels/patches.py orientation_plan): n_oct, then per octave gi, gj,
+// valid, frame (0: lane l is of frame l / budget), scale, x, y, sigma, out,
+// B, S, H, W, lanes, budget, row_stride, first scan, first lane. `work`
+// (4 + lanes ints) must be zeroed.
+extern "C" int orientation_octaves(const long long* table, int radius,
+                                   int n_bins, float lam, int* work,
+                                   cudaStream_t stream) {
+  OriLaunch L = {};
+  L.n_oct = (int)table[0];
+  if (L.n_oct < 1 || L.n_oct > kMaxOriOctaves || n_bins < 1 || radius < 0)
+    return (int)cudaErrorInvalidValue;
+  long long scans = 0, lanes = 0;
+  for (int o = 0; o < L.n_oct; ++o) {
+    const long long* t = table + 1 + 18 * o;
+    OriOctave& oc = L.oct[o];
+    oc.gi = (const float*)t[0];
+    oc.gj = (const float*)t[1];
+    oc.valid = (const uint8_t*)t[2];
+    oc.frame = (const int*)t[3];
+    oc.scale = (const int*)t[4];
+    oc.x = (const float*)t[5];
+    oc.y = (const float*)t[6];
+    oc.sigma = (const float*)t[7];
+    oc.out = (float*)t[8];
+    oc.B = (int)t[9];
+    oc.S = (int)t[10];
+    oc.H = (int)t[11];
+    oc.W = (int)t[12];
+    oc.lanes = (int)t[13];
+    oc.budget = (int)t[14];
+    oc.row_stride = (int)t[15];
+    oc.scan0 = (int)t[16];
+    oc.lane0 = (int)t[17];
+    if (oc.B < 1 || oc.S < 1 || oc.H < 1 || oc.W < 1 || oc.lanes < 0 ||
+        oc.budget < 1 || oc.scan0 != scans || oc.lane0 != lanes)
+      return (int)cudaErrorInvalidValue;
+    scans += (oc.lanes + kOriScan - 1) / kOriScan;
+    lanes += oc.lanes;
+  }
+  if (lanes >= 0x7fffffff) return (int)cudaErrorInvalidValue;
+  L.scans = (int)scans;
+  L.lanes = (int)lanes;
+  L.radius = radius;
+  L.n_bins = n_bins;
+  L.lam = lam;
+  L.work = work;
+  if (scans == 0) return 0;
+  const long long bytes = (long long)n_bins * kOriThreads * sizeof(float);
+  int grid = 0;
+  const int err = device_facts::resident_grid((const void*)orientation_kernel,
+                                              kOriThreads, bytes, &grid);
+  if (err != 0) return err;
+  void* args[] = {&L};
+  return (int)cudaLaunchKernel((const void*)orientation_kernel, dim3(grid),
+                               dim3(kOriThreads), args, (size_t)bytes, stream);
+}
+
+// The card test's probe of wrap_angle and wrap_bin (wrap_pairs_kernel):
+// th [n][2] (old, new) and bins [n][2].
+extern "C" int orientation_wrap_pairs(const float* gi, const float* gj, int n,
+                                      int n_bins, float* th, int* bins,
+                                      cudaStream_t stream) {
+  if (n_bins < 1) return (int)cudaErrorInvalidValue;
+  if (n > 0)
+    wrap_pairs_kernel<<<(n + 127) / 128, 128, 0, stream>>>(gi, gj, n, n_bins,
+                                                           th, bins);
   return (int)cudaGetLastError();
 }
 

@@ -57,15 +57,16 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "detect_octaves": [_P, _F, _F, _I] + [_P] * 9,
     },
     "cascade": {
-        # g0, B, H, W, taps, radii, n_stage, k_max, total_radius, tile,
-        # gauss, dog, stream
-        "octave_cascade": [_P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+        # g0, table (the launch's int32 host table), taps (host float32),
+        # n_taps, gauss, dog, stream
+        "octave_cascade": [_P, _P, _P, _I, _P, _P, _P],
     },
     "patches": {
-        # gi, gj, B, S, H, W, L, valid, frame, scale, x, y, sigma, radius,
-        # n_bins, lam, out, stream
-        "orientation_hist": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                             _P, _P, _I, _I, _F, _P, _P],
+        # table (the launch's int64 host table), radius, n_bins, lam,
+        # ticket, stream
+        "orientation_octaves": [_P, _I, _I, _F, _P, _P],
+        # gi, gj, n, n_bins, th, bins, stream (the wrap probe of the card tests)
+        "orientation_wrap_pairs": [_P, _P, _I, _I, _P, _P, _P],
         # gi, gj, B, S, H, W, L, valid, frame, scale, x, y, sigma, theta,
         # radius, n_hist, n_ori, lam, out, stream
         "descriptor_hist": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,

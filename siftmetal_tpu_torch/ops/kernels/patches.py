@@ -6,6 +6,11 @@ Replaces ``siftmetal_tpu/ops/pallas/patches.py`` ``_orientation_kernel``
 is one keypoint (orientation) or one (keypoint, orientation) pair
 (descriptor); lanes of every frame of a batch go through one launch, each
 with its ``frame`` index and ``valid`` flag (invalid lanes return zeros).
+:func:`orientation_hist_octaves` takes every octave of a batch in one
+orientation launch (an octave table laid out by :func:`orientation_plan`)
+and writes the rows of all octaves into one [B, sum of budgets, n_bins]
+array; :func:`orientation_hist_lanes` is the same kernel over one lane
+array.
 
 ``orient_desc_lanes`` is the fused form (``_orient_desc_kernel`` through
 ``orient_desc_lanes_pallas`` :1835): per keypoint, histogram -> circular
@@ -58,8 +63,10 @@ csrc/patches.cu.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import ctypes
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ...config import SiftConfig
@@ -105,19 +112,92 @@ def _as_uint8(valid: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_args(fields: PatchFields, name, valid, frame, scale, *floats):
-    """Checked, contiguous kernel operands (uint8 valid, int32 indices)."""
+    """Checked, contiguous kernel operands (uint8 valid, int32 indices);
+    ``frame`` None stays None (the lane's frame follows from its index)."""
     require(fields.gi, name)
     require(fields.gj, name)
     if fields.gi.ndim != 4 or fields.gi.shape != fields.gj.shape:
         raise ValueError(f"{name}: gradient fields must be two equal [B, S, H, W]")
-    lanes = {t.shape for t in (valid, frame, scale, *floats)}
+    given = [t for t in (valid, frame, scale, *floats) if t is not None]
+    lanes = {t.shape for t in given}
     if len(lanes) != 1 or len(next(iter(lanes))) != 1:
         raise ValueError(f"{name}: lane arrays must share one [L] shape, got {lanes}")
-    if any(t.device != fields.gi.device for t in (valid, frame, scale, *floats)):
+    if any(t.device != fields.gi.device for t in given):
         raise ValueError(f"{name}: lane arrays must be on the fields' device")
-    ints = [t.to(torch.int32).contiguous() for t in (frame, scale)]
+    ints = [None if t is None else t.to(torch.int32).contiguous() for t in (frame, scale)]
     fl = [require(t.to(torch.float32).contiguous(), name) for t in floats]
     return [_as_uint8(valid)] + ints + fl
+
+
+# Lanes an orientation scan reads (csrc/patches.cu kOriScan) and the
+# octaves a launch takes (kMaxOriOctaves).
+ORI_SCAN = 32
+MAX_ORI_OCTAVES = 16
+
+
+class OrientationOctave(NamedTuple):
+    """Where one octave sits in an orientation launch: lane l (frame l //
+    budget, slot l % budget) of the octave's [lanes] arrays is lane
+    lane0 + l of the launch and is written to row f * row_stride + first +
+    l % budget of the output; scan c of the launch (c - scan0 <
+    ceil(lanes / ORI_SCAN)) reads the flags of its lanes
+    [(c - scan0) * ORI_SCAN, ...)."""
+
+    lanes: int
+    budget: int
+    first: int
+    scan0: int
+    lane0: int
+
+
+def orientation_plan(budgets: Sequence[int], batch: int) -> Tuple[List[OrientationOctave], int, int]:
+    """The orientation launch over octaves of ``budgets`` keypoint slots a
+    frame (in order), their rows concatenated frame by frame: each
+    octave's plan, the number of scans and the rows of a frame."""
+    plans, scan, first, lane0 = [], 0, 0, 0
+    for budget in budgets:
+        lanes = batch * budget
+        plans.append(OrientationOctave(lanes, budget, first, scan, lane0))
+        scan += -(-lanes // ORI_SCAN)
+        first += budget
+        lane0 += lanes
+    return plans, scan, first
+
+
+def _orientation_launch(octaves, out: torch.Tensor, row_stride: int, config: SiftConfig) -> None:
+    """One launch of the orientation kernel over ``octaves``, each
+    (fields, [valid, frame or None, scale, x, y, sigma] as _kernel_args
+    gives them, budget): the rows of each octave placed by
+    :func:`orientation_plan` in ``out`` ([..., n_bins] fp32)."""
+    if len(octaves) > MAX_ORI_OCTAVES:
+        raise ValueError(f"orientation_hist: {len(octaves)} octaves, at most {MAX_ORI_OCTAVES} a launch")
+    budgets = [o[2] for o in octaves]
+    plans, scans, _ = orientation_plan(budgets, octaves[0][1][0].shape[0] // budgets[0])
+    n_bins = config.n_orientation_bins
+    row_bytes = n_bins * out.element_size()
+    table = np.zeros(1 + 18 * len(octaves), np.int64)
+    table[0] = len(octaves)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    for o, ((fields, args, budget), p) in enumerate(zip(octaves, plans)):
+        if args[0].shape[0] != p.lanes:
+            raise ValueError(f"orientation_hist: octave {o} has {args[0].shape[0]} lanes, "
+                             f"not {p.lanes}")
+        table[1 + 18 * o:19 + 18 * o] = (
+            fields.gi.data_ptr(), fields.gj.data_ptr(), *(ptr(a) for a in args),
+            out.data_ptr() + p.first * row_bytes, *fields.gi.shape, p.lanes, budget,
+            row_stride, p.scan0, p.lane0)
+    if scans == 0:
+        return
+    # The kernel's counters and its queue of valid lanes, zeroed.
+    work = torch.zeros((4 + sum(p.lanes for p in plans),), dtype=torch.int32, device=out.device)
+    with _cuda.launch_on(out) as stream:
+        _cuda.check(
+            _cuda.library("patches").orientation_octaves(
+                table.ctypes.data_as(ctypes.c_void_p), config.ori_patch_radius, n_bins,
+                float(config.orientation_lambda), work.data_ptr(), stream),
+            "orientation_hist",
+        )
+    LAUNCHES["orientation_hist"] += 1
 
 
 # Tile sides of the resident route (centres per side), each the fastest
@@ -307,21 +387,47 @@ def orientation_hist_lanes(
         )
     args = _kernel_args(fields, "orientation_hist", valid, frame, scale,
                         x_oct, y_oct, sigma_oct)
-    b, s, h, w = fields.gi.shape
     l = scale.shape[0]
     out = torch.empty((l, config.n_orientation_bins), dtype=torch.float32,
                       device=fields.gi.device)
-    with _cuda.launch_on(out) as stream:
-        _cuda.check(
-            _cuda.library("patches").orientation_hist(
-                fields.gi.data_ptr(), fields.gj.data_ptr(), b, s, h, w, l,
-                *(a.data_ptr() for a in args), config.ori_patch_radius,
-                config.n_orientation_bins, float(config.orientation_lambda),
-                out.data_ptr(), stream,
-            ),
-            "orientation_hist",
-        )
-    LAUNCHES["orientation_hist"] += 1
+    # One octave whose lanes are one "frame" of l slots: row l is lane l.
+    _orientation_launch([(fields, args, max(l, 1))], out, l, config)
+    return out
+
+
+def orientation_hist_octaves(
+    fields: Sequence[PatchFields], kpcs: Sequence, config: SiftConfig
+) -> torch.Tensor:
+    """Raw [B, sum of budgets, n_bins] orientation histograms of every
+    octave's compacted keypoints (``kpcs[o]``: ``valid``, ``scale``,
+    ``x_oct``, ``y_oct``, ``sigma_oct`` of [B, budget_o]; ``fields[o]``
+    its gradients), octave after octave along the rows of each frame. On
+    CUDA fields one launch of the orientation kernel (no concatenation);
+    under ``use_band_patches`` and on the CPU the per-octave calls of
+    :func:`orientation_hist_lanes`, concatenated."""
+    b = kpcs[0].valid.shape[0]
+    if config.use_band_patches or not use_kernel(fields[0].gi, "orientation_hist"):
+        hists = []
+        for f, k in zip(fields, kpcs):
+            budget = k.valid.shape[1]
+            flat = lambda a: a.reshape(b * budget)
+            frame = torch.arange(b, dtype=torch.int32, device=k.valid.device).repeat_interleave(budget)
+            hists.append(orientation_hist_lanes(
+                f, flat(k.scale), flat(k.x_oct), flat(k.y_oct), flat(k.sigma_oct), config,
+                valid=flat(k.valid), frame=frame).reshape(b, budget, -1))
+        return torch.cat(hists, dim=1)
+    octaves = []
+    for f, k in zip(fields, kpcs):
+        if k.valid.shape[0] != b:
+            raise ValueError(f"orientation_hist: octaves of {k.valid.shape[0]} and {b} frames")
+        flat = lambda a: a.reshape(-1)
+        args = _kernel_args(f, "orientation_hist", flat(k.valid), None, flat(k.scale),
+                            flat(k.x_oct), flat(k.y_oct), flat(k.sigma_oct))
+        octaves.append((f, args, k.valid.shape[1]))
+    total = sum(o[2] for o in octaves)
+    out = torch.empty((b, total, config.n_orientation_bins), dtype=torch.float32,
+                      device=fields[0].gi.device)
+    _orientation_launch(octaves, out, total, config)
     return out
 
 

@@ -32,7 +32,7 @@ from ..ops.kernels.cascade import octave_cascade
 from ..ops.kernels.patches import (
     descriptor_lanes,
     orient_desc_lanes,
-    orientation_hist_lanes,
+    orientation_hist_octaves,
     prepare_patch_fields,
 )
 from . import describe as _describe
@@ -102,20 +102,20 @@ def extract_gray_batch(
 
 
 def _describe_octaves(gaussians, dogs, per_octave, config: SiftConfig):
-    """Orientation and descriptor stages of every octave: per-octave
-    keypoint compaction and raw orientation histograms, one smoothing and
-    peak pass over all octaves, then per-octave lane compaction and
-    descriptors."""
+    """Orientation and descriptor stages of every octave: every octave's
+    keypoint compaction and gradient fields, the raw orientation
+    histograms of all octaves in one launch, one smoothing and peak pass
+    over them, then per-octave lane compaction and descriptors."""
     b = gaussians[0].shape[0]
     dev = gaussians[0].device
     n_octaves = len(gaussians)
 
     lane_overflow = torch.zeros((b,), dtype=torch.int32, device=dev)
-    # Phase A: per-octave keypoint compaction + raw orientation histograms
-    # (or, fused, the whole describe stage of the octave in one kernel:
-    # no lane compaction, rows carry the peaks' validity).
-    stage = []   # (octave, budget, kpc, fields, hist)
-    desc_rows = []
+    # Phase A: every octave's keypoint compaction and fields, then the raw
+    # orientation histograms of all of them (or, fused, the whole describe
+    # stage of each octave in one kernel: no lane compaction, rows carry
+    # the peaks' validity).
+    kpcs, fields_all, budgets = [], [], []
     for o in range(n_octaves):
         h, w = dogs[o].shape[-2:]
         budget = _detect.keypoint_budget(config, (h, w), o)
@@ -123,22 +123,17 @@ def _describe_octaves(gaussians, dogs, per_octave, config: SiftConfig):
             per_octave[o], o, config, budget
         )
         lane_overflow = lane_overflow + kp_dropped
-        fields = prepare_patch_fields(gaussians[o], config)
-        frame_kp = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(budget)
-        flat = lambda a: a.reshape(b * budget)
-        if config.use_fused_describe:
+        kpcs.append(kpc)
+        fields_all.append(prepare_patch_fields(gaussians[o], config))
+        budgets.append(budget)
+    if config.use_fused_describe:
+        desc_rows = []
+        for o, (kpc, fields, budget) in enumerate(zip(kpcs, fields_all, budgets)):
+            frame_kp = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(budget)
             desc_rows.append(_fused_rows(o, kpc, fields, frame_kp, config))
-            continue
-        hist = orientation_hist_lanes(
-            fields, flat(kpc.scale), flat(kpc.x_oct), flat(kpc.y_oct),
-            flat(kpc.sigma_oct), config, valid=flat(kpc.valid), frame=frame_kp,
-        ).reshape(b, budget, -1)
-        stage.append((o, budget, kpc, fields, hist))
-
-    if not stage:
         return desc_rows, lane_overflow
+    hist_all = orientation_hist_octaves(fields_all, kpcs, config)
     # Smoothing + peak detection once over every octave's lanes.
-    hist_all = torch.cat([s[4] for s in stage], dim=1)
     hist_all = _describe._smooth_circular(
         hist_all, config.orientation_smoothing_iterations
     )
@@ -147,7 +142,8 @@ def _describe_octaves(gaussians, dogs, per_octave, config: SiftConfig):
     # Phase B: per-octave (keypoint, orientation) lane compaction +
     # descriptors.
     off = 0
-    for o, budget, kpc, fields, _hist in stage:
+    desc_rows = []
+    for o, (budget, kpc, fields) in enumerate(zip(budgets, kpcs, fields_all)):
         theta = theta_all[:, off:off + budget]
         ori_valid = ov_all[:, off:off + budget] & kpc.valid[:, :, None]
         off += budget

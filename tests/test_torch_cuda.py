@@ -6,6 +6,8 @@ no JAX, so on a machine without it they run as
     python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -819,3 +821,139 @@ def test_warp_and_ransac_cpu_vs_cuda(cuda_dev):
     on_cpu = ransac_from_indices(idx, src.cpu(), dst.cpu(), valid.cpu(), *args)
     assert torch.equal(on_card.inliers.cpu(), on_cpu.inliers)
     assert torch.allclose(on_card.model.cpu(), on_cpu.model, rtol=1e-3, atol=1e-3)
+
+
+# --- the streamed cascade and the one-launch orientation ---------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 960, 1280), (8, 480, 640), (2, 37, 45), (1, 61, 23),
+                                   (3, 257, 301)])
+def test_streamed_cascade_matches_plain(cuda_dev, shape):
+    """The streamed cascade vs its plain version (1e-5) at both octave
+    sizes of the 640x480 batch and three odd shapes, and the same bits at
+    every strip and band of the sweep (each block computes every value
+    from the extended plane, whatever its strip)."""
+    from siftmetal_tpu_torch.ops.kernels import cascade as KC
+
+    rng = np.random.default_rng(61)
+    first = _t(rng.uniform(0, 1, shape).astype(np.float32), cuda_dev)
+    g, d = octave_cascade(first, CFG)
+    gr, dr = octave_cascade_plain(first, CFG)
+    assert torch.equal(g[:, 0], first)
+    assert (g - gr).abs().max().item() < 1e-5
+    assert (d - dr).abs().max().item() < 1e-5
+    del gr, dr
+    for strip in KC.STRIP_CHOICES:
+        for band in KC.BAND_CHOICES[:2]:
+            g2, d2 = octave_cascade(first, CFG, strip, band)
+            assert torch.equal(g2, g) and torch.equal(d2, d), (strip, band)
+
+
+@pytest.mark.cuda
+def test_streamed_cascade_generic_radii(cuda_dev):
+    """A schedule other than the default radii takes the generic
+    instance: 4 and 2 scales an octave, and delta_min 1."""
+    rng = np.random.default_rng(62)
+    first = _t(rng.uniform(0, 1, (2, 91, 133)).astype(np.float32), cuda_dev)
+    for cfg in (SiftConfig(n_scales_per_octave=4), SiftConfig(n_scales_per_octave=2),
+                SiftConfig(delta_min=1.0)):
+        g, d = octave_cascade(first, cfg)
+        gr, dr = octave_cascade_plain(first, cfg)
+        assert (g - gr).abs().max().item() < 1e-5 and (d - dr).abs().max().item() < 1e-5
+
+
+def _octave_keypoints(dev, cfg, b=2, h=120, w=160):
+    """Per-octave compacted keypoints and fields of a noise batch, as
+    extract_gray_batch's Phase A makes them."""
+    from siftmetal_tpu_torch.sift import detect as PDT
+    from siftmetal_tpu_torch.sift.batched import build_pyramid_batch
+
+    rng = np.random.default_rng(63)
+    gray = _t(rng.uniform(0, 1, (b, h, w)).astype(np.float32), dev)
+    gauss, dogs = build_pyramid_batch(gray, cfg, cfg.num_octaves(h, w))
+    per_octave, _ = PDT.detect_all_octaves_batch(dogs, cfg)
+    kpcs, fields = [], []
+    for o, d in enumerate(dogs):
+        budget = PDT.keypoint_budget(cfg, tuple(d.shape[-2:]), o)
+        kpcs.append(PDT.compact_octave_keypoints(per_octave[o], o, cfg, budget)[0])
+        fields.append(prepare_patch_fields(gauss[o], cfg))
+    return kpcs, fields
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [CFG, FAST], ids=["parity", "fast"])
+def test_orientation_octaves_equal_per_octave_and_resident(cuda_dev, cfg):
+    """The one-launch orientation form equals the per-octave launches and
+    the resident form (row 9a) bit for bit, and the plain version at 1e-4
+    of each lane's largest bin."""
+    from siftmetal_tpu_torch.ops.kernels.patches import orientation_hist_octaves
+
+    kpcs, fields = _octave_keypoints(cuda_dev, cfg)
+    n0 = LAUNCHES["orientation_hist"]
+    got = orientation_hist_octaves(fields, kpcs, cfg)
+    assert LAUNCHES["orientation_hist"] == n0 + 1
+    b = got.shape[0]
+    per, res, plain = [], [], []
+    band = dataclasses.replace(cfg, use_band_patches=True)
+    for f, k in zip(fields, kpcs):
+        n = k.valid.shape[1]
+        flat = lambda a: a.reshape(-1)
+        frame = torch.arange(b, dtype=torch.int32, device=cuda_dev).repeat_interleave(n)
+        lane = (flat(k.scale), flat(k.x_oct), flat(k.y_oct), flat(k.sigma_oct))
+        per.append(orientation_hist_lanes(f, *lane, cfg, valid=flat(k.valid), frame=frame)
+                   .reshape(b, n, -1))
+        res.append(orientation_hist_lanes(f, *lane, band, valid=flat(k.valid), frame=frame)
+                   .reshape(b, n, -1))
+        plain.append(PDS.orientation_hist_plain(f.gi, f.gj, frame.long(), lane[0].long(),
+                                                *lane[1:], flat(k.valid), cfg).reshape(b, n, -1))
+    per, res, plain = (torch.cat(v, 1) for v in (per, res, plain))
+    assert torch.equal(got, per) and torch.equal(got, res)
+    rel = (got - plain).abs().amax(-1) / plain.abs().amax(-1).clamp(min=1e-12)
+    assert rel.max().item() < 1e-4
+    valid = torch.cat([k.valid for k in kpcs], 1)
+    assert bool((got[~valid] == 0).all()) and bool((got[valid].sum(-1) > 0).all())
+
+
+@pytest.mark.cuda
+def test_orientation_wraps_equal_the_old_expressions(cuda_dev):
+    """wrap_angle / wrap_bin against mod_2pi and the double modulo on
+    gradients whose atan2 is +-0, +-pi, +-pi/2, near -0 and near 2 pi,
+    and NaN: the same angle bits and the same bins."""
+    from siftmetal_tpu_torch.ops import cuda as C
+
+    z, one, tiny, nan = 0.0, 1.0, 1e-30, float("nan")
+    pairs = [(z, z), (-z, z), (z, -z), (-z, -z), (-one, z), (-one, -z), (one, z), (one, -z),
+             (z, one), (z, -one), (-one, tiny), (-one, -tiny), (one, -tiny), (one, tiny),
+             (nan, one), (one, nan), (nan, nan), (-1e30, -1e-30), (3.0, -4.0), (-3.0, 4.0)]
+    rng = np.random.default_rng(64)
+    rnd = rng.normal(0, 1, (4096, 2)).astype(np.float32)
+    gi = _t(np.r_[np.float32([p[0] for p in pairs]), rnd[:, 0]], cuda_dev)
+    gj = _t(np.r_[np.float32([p[1] for p in pairs]), rnd[:, 1]], cuda_dev)
+    n = gi.shape[0]
+    for n_bins in (36, 8, 7):
+        th = torch.empty((n, 2), dtype=torch.float32, device=cuda_dev)
+        bins = torch.empty((n, 2), dtype=torch.int32, device=cuda_dev)
+        with C.launch_on(gi) as stream:
+            C.check(C.library("patches").orientation_wrap_pairs(
+                gi.data_ptr(), gj.data_ptr(), n, n_bins, th.data_ptr(), bins.data_ptr(), stream),
+                "orientation_wrap_pairs")
+        bits = th.view(torch.int32)
+        assert torch.equal(bits[:, 0], bits[:, 1])
+        assert torch.equal(bins[:, 0], bins[:, 1])
+        assert bool(((bins >= 0) & (bins < n_bins)).all())
+
+
+@pytest.mark.cuda
+def test_one_orientation_launch_per_extract_batch(cuda_dev):
+    """Parity and fast configurations: exactly one orientation launch per
+    extract_batch, whatever the number of octaves."""
+    from siftmetal_tpu_torch import SIFT
+
+    rng = np.random.default_rng(65)
+    x = _t(rng.uniform(0, 1, (2, 120, 160)).astype(np.float32), cuda_dev)
+    for cfg in (CFG, FAST):
+        sift = SIFT(120, 160, cfg, device=cuda_dev)
+        n0 = LAUNCHES["orientation_hist"]
+        sift.extract_batch(x)
+        assert LAUNCHES["orientation_hist"] == n0 + 1

@@ -324,7 +324,7 @@ def calls(monkeypatch):
     spy(PB, "blur_cascade")
     spy(PPy, "blur_stack")
     spy(PD, "detect_candidates_octaves")
-    spy(PB, "orientation_hist_lanes")
+    spy(PB, "orientation_hist_octaves")
     spy(PB, "descriptor_lanes")
     spy(PB, "orient_desc_lanes")
     spy(KP, "_resident_lanes")
@@ -381,33 +381,33 @@ def test_pyramid_routing_follows_config(calls, name):
 
 RESIDENT = ["orientation_hist_banded", "descriptor_hist_banded"]
 DESCRIBE_ROUTES = {
-    "default": (SiftConfig(), ["detect_candidates", "orientation_hist_lanes", "descriptor_lanes"],
+    "default": (SiftConfig(), ["detect_candidates", "orientation_hist_octaves", "descriptor_lanes"],
                 ["detect_candidates_lean", "orient_desc_lanes"] + RESIDENT),
     "band": (SiftConfig(use_band_patches=True),
-             ["detect_candidates", "orientation_hist_lanes", "descriptor_lanes"] + RESIDENT,
+             ["detect_candidates", "orientation_hist_octaves", "descriptor_lanes"] + RESIDENT,
              ["detect_candidates_lean", "orient_desc_lanes"]),
     "band_fused": (SiftConfig(use_band_patches=True, use_fused_describe=True),
                    ["detect_candidates", "orient_desc_lanes"],
-                   ["orientation_hist_lanes", "descriptor_lanes"] + RESIDENT),
+                   ["orientation_hist_octaves", "descriptor_lanes"] + RESIDENT),
     "lean": (SiftConfig(detect_slot_fields=False), ["detect_candidates_lean", "descriptor_lanes"],
              ["detect_candidates", "orient_desc_lanes"]),
     "fused": (SiftConfig(use_fused_describe=True), ["detect_candidates", "orient_desc_lanes"],
-              ["orientation_hist_lanes", "descriptor_lanes", "detect_candidates_lean"]),
+              ["orientation_hist_octaves", "descriptor_lanes", "detect_candidates_lean"]),
 }
 
 
 @pytest.mark.parametrize("name", sorted(DESCRIBE_ROUTES))
 def test_detect_and_describe_routing_follows_config(calls, name):
     """Each switch changes the wrappers taken, and the variants return the
-    default route's keypoints and (as a set) its descriptors. Detection is
-    one call over every octave of the batch; the patch wrappers one call
-    an octave."""
+    default route's keypoints and (as a set) its descriptors. Detection and
+    the orientation histograms are one call over every octave of the
+    batch; the other patch wrappers one call an octave."""
     cfg, used, unused = DESCRIBE_ROUTES[name]
     crop = _gray()[150:214, 300:396]
     kp, ds, ctr = SIFT(64, 96, cfg, device="cpu").extract(crop)
     n_oct = cfg.num_octaves(64, 96)
     for key in used:
-        want = 1 if key.startswith("detect_candidates") else n_oct
+        want = 1 if key.startswith("detect_candidates") or key == "orientation_hist_octaves" else n_oct
         assert calls.count(key) == want, (key, calls)
     for key in unused:
         assert calls.count(key) == 0, (key, calls)
