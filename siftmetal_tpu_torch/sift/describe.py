@@ -65,14 +65,17 @@ def orientation_peaks(
     hist: torch.Tensor, config: SiftConfig
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Principal orientations from smoothed histograms [..., n_bins].
-    Returns (theta [..., MAX_ORI], valid); peaks are ordered by height,
-    ties by lower bin (a stable sort, as ``lax.top_k`` orders them)."""
+    Returns (theta [..., MAX_ORI], zero where invalid; valid); peaks are
+    ordered by height, ties by lower bin (a stable sort, as ``lax.top_k``
+    orders them). Zero, not the parabola's 0/0 of a flat histogram: the
+    compactions copy these slots into the padding of the outputs."""
     is_peak, theta = _peak_map(hist, config)
     score = torch.where(is_peak, hist, torch.full_like(hist, float("-inf")))
     k = config.max_orientations_per_keypoint
     top, idx = torch.sort(score, dim=-1, descending=True, stable=True)
-    top, idx = top[..., :k], idx[..., :k]
-    return torch.gather(theta, -1, idx), torch.isfinite(top)
+    valid = torch.isfinite(top[..., :k])
+    theta = torch.gather(theta, -1, idx[..., :k])
+    return torch.where(valid, theta, torch.zeros_like(theta)), valid
 
 
 def _pick_bin_order(is_peak: torch.Tensor, values: torch.Tensor, k: int) -> torch.Tensor:

@@ -957,3 +957,135 @@ def test_one_orientation_launch_per_extract_batch(cuda_dev):
         n0 = LAUNCHES["orientation_hist"]
         sift.extract_batch(x)
         assert LAUNCHES["orientation_hist"] == n0 + 1
+
+
+# --- SfM back-end on the card --------------------------------------------------------
+
+
+def _ba_problem(dev, n_cam=6, n_lm=256, seed=42):
+    """tests/test_slam.py's ba_scene (noisy start, two fixed cameras) as a
+    port BAProblem on ``dev``."""
+    from siftmetal_tpu_torch.slam.ba import BAProblem
+    from siftmetal_tpu_torch.slam.camera import project
+
+    rng = np.random.default_rng(seed)
+    k = np.array([[400, 0, 320], [0, 400, 240], [0, 0, 1]], np.float32)
+    lms = rng.uniform([-3, -3, 6], [3, 3, 12], (n_lm, 3)).astype(np.float32)
+    cams = np.zeros((n_cam, 6), np.float32)
+    cams[:, 3] = np.linspace(-1, 1, n_cam)
+    cams[:, :3] = rng.uniform(-0.05, 0.05, (n_cam, 3))
+    cam_idx = np.repeat(np.arange(n_cam), n_lm).astype(np.int32)
+    lm_idx = np.tile(np.arange(n_lm), n_cam).astype(np.int32)
+    uv = project(torch.from_numpy(cams)[cam_idx], torch.from_numpy(k),
+                 torch.from_numpy(lms)[lm_idx]).numpy()
+    uv[::37] += 40.0                                    # outliers for the Huber loss
+    noisy_cams = cams + rng.normal(0, 0.01, cams.shape).astype(np.float32)
+    noisy_cams[:2] = cams[:2]
+    noisy_lms = lms + rng.normal(0, 0.05, lms.shape).astype(np.float32)
+    args = (noisy_cams, noisy_lms, k, cam_idx, lm_idx, uv, np.ones(len(uv), bool))
+    return BAProblem(*(_t(a, dev) for a in args), fixed_cameras=2)
+
+
+def _pose_loop(dev):
+    from siftmetal_tpu_torch.slam.camera import relative
+    from siftmetal_tpu_torch.slam.pose_graph import PoseGraph
+
+    rng = np.random.default_rng(9)
+    n = 12
+    angles = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    gt = np.zeros((n, 6), np.float32)
+    gt[:, 2], gt[:, 3], gt[:, 4] = angles, np.cos(angles) * 2.0, np.sin(angles) * 2.0
+    ei = np.arange(n, dtype=np.int32)
+    ej = np.roll(ei, -1)
+    rel = relative(torch.from_numpy(gt[ei]), torch.from_numpy(gt[ej])).numpy()
+    rel[5] += 0.3                                       # one bad edge for the Huber weights
+    noisy = gt + rng.normal(0, 0.05, gt.shape).astype(np.float32)
+    noisy[0] = gt[0]
+    args = (noisy, ei, ej, rel, np.ones(n, np.float32))
+    return PoseGraph(*(_t(a, dev) for a in args), fixed=1)
+
+
+@pytest.mark.cuda
+def test_bundle_adjust_and_pose_graph_on_card_match_cpu(cuda_dev):
+    """BA (plain and Huber) and the pose graph on the card agree with the
+    CPU run at 1e-3 (other summation orders and another LU), and a second
+    run on the card gives the same bits (segment sums in a fixed order)."""
+    from siftmetal_tpu_torch.device import resolve_device
+    from siftmetal_tpu_torch.slam.ba import bundle_adjust
+    from siftmetal_tpu_torch.slam.pose_graph import optimize_pose_graph
+
+    resolve_device("cuda")
+    for huber in (0.0, 2.0):
+        on_card, s_card = bundle_adjust(_ba_problem(cuda_dev), n_iterations=8, huber_delta=huber)
+        on_cpu, s_cpu = bundle_adjust(_ba_problem("cpu"), n_iterations=8, huber_delta=huber)
+        again, _ = bundle_adjust(_ba_problem(cuda_dev), n_iterations=8, huber_delta=huber)
+        assert torch.equal(again.cameras, on_card.cameras) and torch.equal(again.landmarks, on_card.landmarks)
+        assert on_card.cameras.is_cuda and s_card.final_cost.is_cuda
+        np.testing.assert_allclose(on_card.cameras.cpu().numpy(), on_cpu.cameras.numpy(), atol=1e-3)
+        np.testing.assert_allclose(on_card.landmarks.cpu().numpy(), on_cpu.landmarks.numpy(), atol=1e-3)
+        np.testing.assert_allclose(float(s_card.final_cost), float(s_cpu.final_cost),
+                                   rtol=1e-3, atol=1e-3)
+    g_card, c_card = optimize_pose_graph(_pose_loop(cuda_dev), n_iterations=30)
+    g_cpu, c_cpu = optimize_pose_graph(_pose_loop("cpu"), n_iterations=30)
+    np.testing.assert_allclose(g_card.poses.cpu().numpy(), g_cpu.poses.numpy(), atol=1e-3)
+    # The final cost at 1e-3 absolute: poses 1e-3 apart move the bad edge's
+    # 0.3 residual's share of it by ~3e-4.
+    assert abs(float(c_card) - float(c_cpu)) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_lm_loops_make_no_host_sync(cuda_dev):
+    """bundle_adjust (grouping included) and optimize_pose_graph read no
+    value on the host: they run under torch.cuda.set_sync_debug_mode
+    ("error") once their inputs lie on the card."""
+    from siftmetal_tpu_torch.device import resolve_device
+    from siftmetal_tpu_torch.slam.ba import bundle_adjust
+    from siftmetal_tpu_torch.slam.pose_graph import optimize_pose_graph
+
+    resolve_device("cuda")
+    problem, graph = _ba_problem(cuda_dev), _pose_loop(cuda_dev)
+    huber = torch.full((graph.edge_i.shape[0],), 0.1, device=cuda_dev)
+    bundle_adjust(problem, n_iterations=2, huber_delta=2.0)     # warm-up: handles, workspaces
+    optimize_pose_graph(graph, n_iterations=2, huber_delta=huber)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, stats = bundle_adjust(problem, n_iterations=4, huber_delta=2.0)
+        g, cost = optimize_pose_graph(graph, n_iterations=4, huber_delta=huber)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(stats.final_cost) < float(stats.initial_cost)
+    assert bool(torch.isfinite(g.poses).all()) and bool(torch.isfinite(cost))
+
+
+@pytest.mark.cuda
+def test_sfm_map_defaults_to_cuda_and_registers_frames(cuda_dev):
+    """SfmMap(k) runs on the card; tests/test_sfm.py's synthetic sequence
+    registers every frame there with its bars (sub-pixel RMS, ATE < 0.05)."""
+    from siftmetal_tpu_torch.slam.camera import project
+    from siftmetal_tpu_torch.slam.sfm import SfmConfig, SfmMap
+    from siftmetal_tpu_torch.slam.trajectory import ate_rmse, camera_centers
+
+    k = np.array([[400, 0, 320], [0, 400, 240], [0, 0, 1]], np.float32)
+    assert SfmMap(k).device.type == "cuda"
+    rng = np.random.default_rng(21)
+    lms = rng.uniform([-4, -3, 8], [4, 3, 16], (512, 3)).astype(np.float32)
+    descs = rng.integers(0, 200, (512, 128)).astype(np.uint8)
+    cams = np.zeros((5, 6), np.float32)
+    cams[:, 3] = np.linspace(0, 2.0, 5)
+    cams[:, 1] = np.linspace(0, 0.1, 5)
+    frames = []
+    for c in cams:
+        uv = project(torch.from_numpy(c), torch.from_numpy(k), torch.from_numpy(lms)).numpy()
+        uv = uv + rng.normal(0, 0.3, uv.shape).astype(np.float32)
+        inside = (uv[:, 0] > 0) & (uv[:, 0] < 640) & (uv[:, 1] > 0) & (uv[:, 1] < 480)
+        frames.append((_t(uv[:, ::-1].copy(), cuda_dev), _t(descs, cuda_dev), _t(inside, cuda_dev)))
+    smap = SfmMap(k, SfmConfig(max_cameras=8))
+    assert smap.initialize(frames[0], frames[1]) > 200
+    for f in frames[2:]:
+        ok, n_in, _ = smap.add_frame(f)
+        assert ok and n_in > 100
+    stats = smap.bundle_adjust()
+    assert stats.final_cost.is_cuda and float(stats.final_cost) <= float(stats.initial_cost)
+    assert smap.reprojection_rms() < 1.0
+    assert ate_rmse(camera_centers(smap.cameras[:5]), camera_centers(cams)) < 0.05

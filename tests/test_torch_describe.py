@@ -144,3 +144,29 @@ def test_smoothing_peaks_quantization_match_jax():
     for a, b in zip(PDS.gradients(_t(g)), JDS.gradients(jnp.asarray(g))):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
+
+
+def test_peakless_orientations_are_zero_and_padding_finite():
+    """A flat (all-zero or constant) histogram has no peak: its theta slots
+    are 0, not the parabola's 0/0, so the compactions that copy them into
+    the outputs' padding keep every field finite. A frame with large flat
+    areas (blobs on a grey plane, half of it blank) extracts with finite
+    values in every slot, valid or not."""
+    hist = np.zeros((3, 36), np.float32)
+    hist[1] = 0.5
+    hist[2, 7] = 1.0
+    th, ok = PDS.orientation_peaks(torch.from_numpy(hist), CFG)
+    assert ok.numpy().tolist() == [[False] * 4, [False] * 4, [True, False, False, False]]
+    assert bool(torch.isfinite(th).all()) and float(th[:2].abs().max()) == 0.0
+    from siftmetal_tpu_torch import SIFT
+
+    rng = np.random.default_rng(8)
+    img = np.full((96, 128), 0.5, np.float32)
+    yy, xx = np.mgrid[0:96, 0:128]
+    for cy, cx, r, a in zip(rng.uniform(8, 88, 12), rng.uniform(8, 60, 12),
+                            rng.uniform(2, 5, 12), rng.choice([-0.3, 0.3], 12)):
+        img += a * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * r * r))
+    kps, descs, _ = SIFT(96, 128, device="cpu").extract(np.clip(img, 0, 1))
+    assert int(descs.valid.sum()) > 0
+    for t in (kps.x, kps.y, kps.sigma, descs.x, descs.y, descs.sigma, descs.theta):
+        assert bool(torch.isfinite(t).all())
