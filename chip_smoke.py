@@ -55,8 +55,22 @@ Phases, in order; any failure exits non-zero and prints no result:
     full budgets (every frame registered, RMS < 1 px, ATE < 0.1; ms per
     add_frame and of the global BA); the 52-keyframe loop-closure scene of
     tests/test_sfm.py (every frame registered and its three bars on one
-    named RANSAC stream; four more streams printed as a statistic);
- 7. IPOL parity: the butterfly fixture through SIFT(340, 512).extract on
+    named RANSAC stream; two more printed, the default stream among them:
+    scripts/loop_scene_streams.py holds the statistic over many);
+ 7. parallel: the multi-device layer in a child process (this script with
+    --parallel-child), so its NCCL process group stays out of the other
+    phases. The child starts before the kernels' build and gets ready
+    meanwhile (imports, CUDA context, multihost.initialize at world size 1
+    through NCCL and a barrier, the frame loader's build); it waits for
+    the parent's go before it runs anything timed: make_batch_extractor on phase 3's frames (launch counters set
+    to 0 just before and read just after, the main path's launches
+    checked, every field equal to extract_batch bit for bit);
+    make_sharded_matcher on phase 4's map (equal to match_bruteforce);
+    make_distributed_ba at phase 6's mapping size (cost to below 1, within
+    1e-4 / 1e-3 of bundle_adjust); run_elastic with one injected failure;
+    FrameLoader on eight PPM frames of the video scene, extracted on the
+    card. ms of each beside its one-device counterpart;
+ 8. IPOL parity: the butterfly fixture through SIFT(340, 512).extract on
     the card, held to the bounds of tests/test_detect.py and
     tests/test_describe.py; then the fast-preset gates: bf16 against fp32
     keypoint agreement, and butterfly-vs-itself matching.
@@ -1331,6 +1345,24 @@ def phase_main_path(reports, smi_line):
     return ctr
 
 
+def _big_map(dev):
+    """A seeded 4096 x 131072 uint8 map query: each query is a target
+    (``src``) plus noise of up to 3 levels a component; 2% of the targets
+    invalid. Returns (queries, targets, query valid, target valid, src)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(1)
+    tq, tt = 4096, 131072
+    targets = torch.from_numpy(rng.integers(0, 256, (tt, 128), dtype=np.uint8)).to(dev)
+    src = torch.from_numpy(rng.permutation(tt)[:tq]).to(dev)
+    noise = torch.from_numpy(rng.integers(-3, 4, (tq, 128)).astype(np.int16)).to(dev)
+    queries = (targets[src].to(torch.int16) + noise).clamp(0, 255).to(torch.uint8)
+    qv = torch.ones((tq,), dtype=torch.bool, device=dev)
+    tv = torch.from_numpy(rng.uniform(size=tt) > 0.02).to(dev)
+    return queries, targets, qv, tv, src
+
+
 def phase_fast_path(reports, parity_ctr, smi_line):
     """The fast-preset slice at full width: bf16 extraction of the 8 noise
     frames, pairwise matching, a map beyond ``target_block``, the parity
@@ -1403,14 +1435,8 @@ def phase_fast_path(reports, parity_ctr, smi_line):
     _profile("fast match", lambda: match_pairs(descs))
 
     # --- a map beyond target_block: 4096 queries x 131072 targets ----------
-    rng = np.random.default_rng(1)
-    tq, tt, blk = 4096, 131072, 65536
-    targets = torch.from_numpy(rng.integers(0, 256, (tt, 128), dtype=np.uint8)).to(sift.device)
-    src = torch.from_numpy(rng.permutation(tt)[:tq]).to(sift.device)
-    noise = torch.from_numpy(rng.integers(-3, 4, (tq, 128)).astype(np.int16)).to(sift.device)
-    queries = (targets[src].to(torch.int16) + noise).clamp(0, 255).to(torch.uint8)
-    qv = torch.ones((tq,), dtype=torch.bool, device=sift.device)
-    tv = torch.from_numpy(rng.uniform(size=tt) > 0.02).to(sift.device)
+    queries, targets, qv, tv, src = _big_map(sift.device)
+    tq, tt, blk = queries.shape[0], targets.shape[0], 65536
     big = match_bruteforce(queries, targets, qv, tv, target_block=blk)
     want = torch.where(tv[src], src, -1).to(torch.int32)
     hit = want >= 0
@@ -1733,15 +1759,14 @@ def phase_pair(reports, smi_line):
     _profile("pair", lambda: _verify_pairs(band.extract_batch(frames)[1], gen))
 
 
-def _sfm_mapping_ba(dev, smi_line):
-    """tests/test_slam.py::test_ba_scales_to_mapping_size on the card: 256
-    cameras, 65,536 landmarks each seen by 3 consecutive cameras (196,608
-    observations), max_obs_per_landmark=4, 3 iterations; its gates (no
-    observation dropped, the cost below half the initial)."""
+def _mapping_problem(dev):
+    """tests/test_slam.py::test_ba_scales_to_mapping_size's problem on
+    ``dev``: 256 cameras (2 fixed), 65,536 landmarks each seen by 3
+    consecutive cameras (196,608 observations), noisy start."""
     import numpy as np
     import torch
 
-    from siftmetal_tpu_torch.slam.ba import BAProblem, bundle_adjust
+    from siftmetal_tpu_torch.slam.ba import BAProblem
     from siftmetal_tpu_torch.slam.camera import project
 
     rng = np.random.default_rng(0)
@@ -1759,8 +1784,21 @@ def _sfm_mapping_ba(dev, smi_line):
     noisy_cams = cams + rng.normal(0, 0.002, cams.shape).astype(np.float32)
     noisy_cams[:2] = cams[:2]
     noisy_lms = lms + rng.normal(0, 0.01, lms.shape).astype(np.float32)
-    problem = BAProblem(t(noisy_cams), t(noisy_lms), t(k), t(cam_idx), t(lm_idx), uv,
-                        torch.ones(len(cam_idx), dtype=torch.bool, device=dev), fixed_cameras=2)
+    return BAProblem(t(noisy_cams), t(noisy_lms), t(k), t(cam_idx), t(lm_idx), uv,
+                     torch.ones(len(cam_idx), dtype=torch.bool, device=dev), fixed_cameras=2)
+
+
+def _sfm_mapping_ba(dev, smi_line):
+    """tests/test_slam.py::test_ba_scales_to_mapping_size on the card: 256
+    cameras, 65,536 landmarks each seen by 3 consecutive cameras (196,608
+    observations), max_obs_per_landmark=4, 3 iterations; its gates (no
+    observation dropped, the cost below half the initial)."""
+    import torch
+
+    from siftmetal_tpu_torch.slam.ba import bundle_adjust
+
+    problem = _mapping_problem(dev)
+    n_cam, n_lm, cam_idx = problem.cameras.shape[0], problem.landmarks.shape[0], problem.cam_idx
     run = lambda: bundle_adjust(problem, n_iterations=3, damping=1e-4, max_obs_per_landmark=4)
     _, stats = run()
     c0, c1, dropped = float(stats.initial_cost), float(stats.final_cost), int(stats.obs_dropped)
@@ -1857,9 +1895,10 @@ def _sfm_video(reports, dev, smi_line):
 # stream in both packages (scripts/loop_scene_streams.py; the JAX test's
 # own stream misses a bar on the CPU). LOOP_GATED, the stream that must
 # register every frame and meet the three bars, is the first seeded one;
-# every stream is run and printed as the statistic.
+# two more (the default stream, which misses a bar, and seed 1) are run and
+# printed; the statistic over many streams is that script's.
 LOOP_GATED = 0
-LOOP_STREAMS = (0, None, 1, 2, 3)
+LOOP_STREAMS = (0, None, 1)
 
 
 def _loop_scene(dev):
@@ -2066,6 +2105,296 @@ def _profile(tag, fn):
           f"x{sum(c for _, c in hit)}", flush=True)
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_parallel_child():
+    """Start the parallel phase's child process (this script with
+    ``--parallel-child``) at world size 1: it imports, sets up its CUDA
+    context, joins its NCCL group and builds the frame loader while the
+    other phases run, then waits for ``go`` on its standard input before
+    it touches a kernel or times anything."""
+    import os
+
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    return subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--parallel-child"],
+                            env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def phase_parallel(child, smi_line):
+    """The multi-device layer, in the child process started by
+    start_parallel_child, so that its NCCL process group cannot reach the
+    other phases. Fails when the child does."""
+    t0 = time.time()
+    out, err = child.communicate("go\n", timeout=600)
+    sys.stdout.write(out)
+    sys.stderr.write(err)
+    sys.stdout.flush()
+    _require(child.returncode == 0, f"parallel: the child process exited with {child.returncode}")
+    print(f"[parallel] phase {time.time() - t0:.1f} s from go to the child's exit "
+          f"({smi_line})", flush=True)
+
+
+def _parallel_extraction(mesh, smi_line):
+    """make_batch_extractor at world size 1 on the main path's frames:
+    the main path's launches, every field equal to SIFT.extract_batch bit
+    for bit, ms a batch of both in turns."""
+    import torch
+
+    from siftmetal_tpu_torch import SIFT, SiftConfig
+    from siftmetal_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from siftmetal_tpu_torch.parallel import make_batch_extractor
+
+    sift = SIFT(480, 640)
+    x = _noise_frames(sift.device)
+    extract = make_batch_extractor(mesh, 480, 640, SiftConfig())
+    extract(x)                                # warm-up: tables, allocator, communicator
+    ref = sift.extract_batch(x)
+    torch.cuda.synchronize()
+    reset_launches()
+    out = extract(x)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    missing = [k for k in PARITY_KERNELS if launches[k] == 0]
+    _require(not missing, f"parallel: the sharded extractor never launched {missing}")
+    _require_launches("parallel", launches, PARITY_PYRAMID)
+    _require_launches("parallel", launches, PARITY_DETECT, "detection")
+    _require_launches("parallel", launches, ONE_ORIENTATION, "orientation")
+    kps, descs, ctr = out
+    rk, rd, rc = ref
+    for name, a, b in zip(kps._fields + descs._fields, (*kps, *descs), (*rk, *rd)):
+        _require(a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b),
+                 f"parallel: sharded {name} differs from extract_batch")
+    _require(set(ctr) == set(rc) and all(torch.equal(ctr[k], rc[k]) for k in rc),
+             "parallel: sharded counters differ from extract_batch")
+    ms_shard, ms_one = [], []
+    for _ in range(2):
+        ms_shard += _windows(lambda: extract(x), 1, 5)
+        ms_one += _windows(lambda: sift.extract_batch(x), 1, 5)
+    print(f"[parallel] make_batch_extractor (NCCL, world 1) 8x480x640: every field equal to "
+          f"SIFT.extract_batch bit for bit; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}; median {_median(ms_shard):.3f} "
+          f"ms/batch (windows of 5: {', '.join(f'{v:.3f}' for v in ms_shard)}) against "
+          f"extract_batch {_median(ms_one):.3f} ({', '.join(f'{v:.3f}' for v in ms_one)}) "
+          f"({smi_line})", flush=True)
+
+
+def _parallel_matcher(mesh, smi_line):
+    """make_sharded_matcher on the fast phase's 4096 x 131072 map: every
+    field equal to match_bruteforce; ms of both in turns."""
+    import torch
+
+    from siftmetal_tpu_torch.match import match_bruteforce
+    from siftmetal_tpu_torch.parallel import make_sharded_matcher
+
+    queries, targets, qv, tv, src = _big_map(torch.device("cuda"))
+    match = make_sharded_matcher(mesh)
+    got = match(queries, qv, targets, tv)
+    want = match_bruteforce(queries, targets, qv, tv)
+    _require(torch.equal(got.valid, want.valid), "parallel: sharded matcher valid != match_bruteforce")
+    ok = want.valid
+    _require(torch.equal(got.target_idx[ok], want.target_idx[ok]),
+             "parallel: sharded matcher target_idx != match_bruteforce where valid")
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    ms_shard, ms_one = [], []
+    for _ in range(2):
+        ms_shard.append(_time_ms(lambda: match(queries, qv, targets, tv), 3))
+        ms_one.append(_time_ms(lambda: match_bruteforce(queries, targets, qv, tv), 3))
+    print(f"[parallel] make_sharded_matcher 4096 x 131072 x 128 uint8: {int(got.count)} accepted, "
+          f"valid and target_idx equal to match_bruteforce (every field equal: {same}); "
+          f"{_median(ms_shard):.3f} ms ({', '.join(f'{v:.3f}' for v in ms_shard)}) against "
+          f"match_bruteforce {_median(ms_one):.3f} ({', '.join(f'{v:.3f}' for v in ms_one)}) "
+          f"({smi_line})", flush=True)
+
+
+def _parallel_ba(mesh, smi_line):
+    """make_distributed_ba at the sfm phase's mapping size, 3 iterations:
+    the cost falls from ~228192 to below 1, as bundle_adjust's does; ms a
+    call of both in turns, and the peak memory of the distributed one."""
+    import torch
+
+    from siftmetal_tpu_torch.parallel import make_distributed_ba, shard_ba_problem
+    from siftmetal_tpu_torch.slam.ba import bundle_adjust
+
+    dev = torch.device("cuda")
+    t_set = time.perf_counter()
+    problem = _mapping_problem(dev)
+    t0 = time.perf_counter()
+    sharded = shard_ba_problem(problem, 1, max_obs_per_landmark=4)
+    shard_ms = (time.perf_counter() - t0) * 1e3
+    run = make_distributed_ba(mesh, n_iterations=3, damping=1e-4)
+    single = lambda: bundle_adjust(problem, n_iterations=3, damping=1e-4, max_obs_per_landmark=4)
+    t1 = time.perf_counter()
+    cams, lms, (c0, c1) = run(sharded)
+    t2 = time.perf_counter()
+    out, stats = single()
+    torch.cuda.synchronize()
+    set_up = (t1 - t_set, t2 - t1, time.perf_counter() - t2)
+    c0, c1 = float(c0), float(c1)
+    _require(abs(c0 - float(stats.initial_cost)) <= 1e-4 * c0 and c1 < 1.0,
+             f"parallel: distributed BA cost {c0:.1f} -> {c1:.4f}, not bundle_adjust's "
+             f"{float(stats.initial_cost):.1f} -> below 1")
+    dc = float((cams - out.cameras).abs().max())
+    dl = float((lms.reshape(-1, 3) - out.landmarks).abs().max())
+    _require(dc < 1e-4 and dl < 1e-3,
+             f"parallel: distributed BA differs from bundle_adjust by {dc:.2e} (cameras), "
+             f"{dl:.2e} (landmarks)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    ms_dist = _windows(lambda: run(sharded), 1, 2)
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms_one = _windows(single, 1, 2)
+    ms_dist += _windows(lambda: run(sharded), 1, 2)
+    ms_one += _windows(single, 1, 2)
+    print(f"[parallel] make_distributed_ba (NCCL, world 1) {problem.cameras.shape[0]} cameras / "
+          f"{problem.landmarks.shape[0]} landmarks / {problem.cam_idx.shape[0]} observations, "
+          f"M=4, 3 iterations: cost {c0:.1f} -> {c1:.4f} (bundle_adjust {float(stats.initial_cost):.1f}"
+          f" -> {float(stats.final_cost):.4f}); cameras within {dc:.2e}, landmarks within {dl:.2e} "
+          f"of bundle_adjust; shard_ba_problem {shard_ms:.1f} ms on the host; median "
+          f"{_median(ms_dist):.3f} ms a call ({', '.join(f'{v:.3f}' for v in ms_dist)}) against "
+          f"bundle_adjust {_median(ms_one):.3f} ({', '.join(f'{v:.3f}' for v in ms_one)}); peak "
+          f"memory {peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} MiB above the inputs); "
+          f"set-up wall s: problem {set_up[0]:.2f}, first distributed call {set_up[1]:.2f}, first "
+          f"bundle_adjust {set_up[2]:.2f} ({smi_line})", flush=True)
+
+
+def _parallel_elastic():
+    """run_elastic with one injected failure, a barrier in every step."""
+    from siftmetal_tpu_torch.parallel import multihost
+
+    saved, fail_at = {}, {3}
+
+    def step_fn(step, state):
+        if step in fail_at:
+            fail_at.discard(step)
+            raise RuntimeError("injected failure")
+        multihost.barrier(f"step {step}")
+        return state + 1
+
+    import logging
+
+    logging.getLogger("siftmetal_tpu_torch.multihost").setLevel(logging.CRITICAL)
+    step, state = multihost.run_elastic(
+        step_fn, 0, n_steps=5, checkpoint_every=1,
+        save_fn=lambda s, st: saved.__setitem__("c", (s, st)),
+        restore_fn=lambda: saved.get("c"), backoff_s=0.0,
+    )
+    _require((step, state) == (5, 5), f"parallel: the elastic loop ended at {(step, state)}")
+    print("[parallel] run_elastic: one injected failure at step 3, restored from the step-3 "
+          "checkpoint, reached step 5 with state 5", flush=True)
+
+
+def _parallel_loader(smi_line):
+    """FrameLoader (the native library, built at first use): eight 480x640
+    frames of the video scene written as PPM to a temporary directory,
+    read back in one pinned batch, moved to the card and extracted there."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from examples.video_sfm_torch import render, textured_scene
+    from siftmetal_tpu_torch import SIFT
+    from siftmetal_tpu_torch.utils import frame_loader
+    from siftmetal_tpu_torch.utils.io import save_image
+
+    dev = torch.device("cuda")
+    h, w, n = 480, 640, 8
+    k = np.array([[520, 0, w / 2], [0, 520, h / 2], [0, 0, 1]], np.float32)
+    centers, amps, widths = textured_scene(np.random.default_rng(0), width_scale=2.0)
+    cams = np.zeros((n, 6), np.float32)
+    cams[:, 3] = np.linspace(0, 1.2, n)
+    cams[:, 1] = np.linspace(0, 0.06, n)
+    imgs = torch.stack([render(c, k, centers, amps, widths, h, w, dev) for c in cams])
+    with tempfile.TemporaryDirectory() as d:
+        paths = []
+        for i, img in enumerate(imgs.cpu()):
+            paths.append(f"{d}/frame{i}.ppm")
+            save_image(paths[-1], torch.stack([img] * 3, -1))
+        loads = []
+        with frame_loader.FrameLoader(h, w, n_threads=8) as loader:
+            for _ in range(3):
+                t0 = time.perf_counter()
+                loader.submit_all(paths)
+                batch = loader.next_batch(n)
+                loads.append(time.perf_counter() - t0)
+            _require(loader.error_count == 0, f"parallel: the loader counted {loader.error_count} errors")
+    _require(batch.is_pinned(), "parallel: the loader's batch is not in pinned memory")
+    frames = batch.to(dev, non_blocking=True)
+    # Written as 8-bit samples (truncated): within 1/255 of the rendered
+    # frames, plus the float rounding of the loader's gray conversion.
+    err = float((frames - imgs).abs().max())
+    _require(err <= 1.0 / 255.0 + 1e-6,
+             f"parallel: loaded frames differ from the written ones by {err:.2e}")
+    _, descs, ctr = SIFT(h, w).extract_batch(frames)
+    nd = [int(v) for v in ctr["n_descriptors"].cpu()]
+    _require(min(nd) > 0, f"parallel: descriptors per loaded frame {nd}")
+    fps = n / _median(loads)
+    print(f"[parallel] FrameLoader: 8 PPM frames 480x640 "
+          f"decoded to gray by 8 threads in {', '.join(f'{1e3 * v:.2f}' for v in loads)} ms "
+          f"({fps:.1f} frames/s median, host clock); within {err:.2e} of the written frames; "
+          f"extracted on the card: descriptors per frame {nd} ({smi_line})", flush=True)
+
+
+def parallel_child() -> int:
+    """The body of the parallel phase: world size 1 through NCCL. Gets
+    ready (imports, CUDA context, initialize and a barrier, the frame
+    loader's build), waits for ``go`` on standard input, then runs the
+    checks, each timed on the host clock."""
+    t_start = time.time()
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    smi_line = _smi()
+    from siftmetal_tpu_torch.parallel import make_mesh, multihost
+    from siftmetal_tpu_torch.utils import frame_loader
+
+    torch.cuda.init()
+    torch.zeros(1, device="cuda")
+    t_ctx = time.time()
+    rank, world = multihost.initialize()
+    _require((rank, world) == (0, 1) and dist.get_backend() == "nccl",
+             f"parallel: initialize gave rank {rank} of {world} on {dist.get_backend()}")
+    count = multihost.barrier("startup")
+    _require(count == 1.0, f"parallel: barrier counted {count} devices")
+    mesh = make_mesh(1)
+    _require(mesh.device_type == "cuda", f"parallel: a {mesh.device_type} mesh")
+    t_init = time.time()
+    frame_loader.build()
+    t_build = time.time()
+    print(f"[parallel] child ready: imports and CUDA context {t_ctx - t_start:.2f} s, initialize "
+          f"(NCCL, rank 0 of 1) and barrier (counted {count:.0f} device) {t_init - t_ctx:.2f} s, "
+          f"frame loader built {t_build - t_init:.2f} s ({smi_line})", flush=True)
+    if sys.stdin.readline().strip() != "go":
+        dist.destroy_process_group()
+        return 1
+    parts = {}
+    try:
+        for name, fn in (("extractor", lambda: _parallel_extraction(mesh, smi_line)),
+                         ("matcher", lambda: _parallel_matcher(mesh, smi_line)),
+                         ("distributed BA", lambda: _parallel_ba(mesh, smi_line)),
+                         ("elastic", _parallel_elastic),
+                         ("loader", lambda: _parallel_loader(smi_line))):
+            t0 = time.time()
+            fn()
+            parts[name] = time.time() - t0
+        multihost.barrier("shutdown")
+    finally:
+        dist.destroy_process_group()
+    print("[parallel] parts, wall s on the host clock: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()), flush=True)
+    return 0
+
+
 def phase_ipol(smi_line):
     """The butterfly on the card, held to the IPOL fixture bounds."""
     import numpy as np
@@ -2185,9 +2514,22 @@ def main() -> int:
     smi_line = _smi()
     print(f"[device] {smi_line}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     from siftmetal_tpu_torch.device import resolve_device
-    from siftmetal_tpu_torch.ops import cuda as _cuda
 
     resolve_device("cuda")
+    child = start_parallel_child()
+    try:
+        return _main_phases(child, smi_line, t0)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+
+def _main_phases(child, smi_line, t0) -> int:
+    import torch
+
+    from siftmetal_tpu_torch.ops import cuda as _cuda
+
     tb = time.time()
     logs = _cuda.build_all()
     for log in logs.values():
@@ -2204,6 +2546,7 @@ def main() -> int:
     phase_fast_path(reports, parity_ctr, smi_line)
     phase_pair(reports, smi_line)
     phase_sfm(reports, smi_line)
+    phase_parallel(child, smi_line)
     phase_ipol(smi_line)
     phase_fast_gates(smi_line)
     print(f"[done] {time.time() - t0:.1f} s", flush=True)
@@ -2219,7 +2562,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        code = main()
+        code = parallel_child() if sys.argv[1:] == ["--parallel-child"] else main()
     except Exception:
         import traceback
 

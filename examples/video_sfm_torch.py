@@ -6,8 +6,9 @@ wall of textured blobs, a camera sweep rendered on the device, SIFT on
 every frame (``siftmetal_tpu_torch.SIFT``), the incremental ``SfmMap``
 (bootstrap, PnP registration, triangulation, global BA), reprojection
 RMS and the ATE against the ground-truth trajectory. It writes the map
-(``map.npz``), the TUM trajectory and frame 0 as a PGM; the keypoint
-drawing of the JAX example is left out until the port has ``viz.py``.
+(``map.npz``), the TUM trajectory, frame 0 as a PGM and frame 0's
+keypoints drawn over it (``frame0_keypoints.png``; drawing needs
+matplotlib, the ``viz`` extra, and is skipped with a note without it).
 
 Usage:
     python examples/video_sfm_torch.py [out_dir] [--device cpu]
@@ -18,6 +19,7 @@ and asserts ATE < 0.1 as the original does.
 """
 
 import argparse
+import importlib.util
 import math
 import pathlib
 import sys
@@ -82,6 +84,7 @@ def main(out_dir=None, device=None):
     from siftmetal_tpu_torch.slam.trajectory import ate_rmse, camera_centers
     from siftmetal_tpu_torch.utils.checkpoint import save_map, save_trajectory_tum
     from siftmetal_tpu_torch.utils.io import save_image
+    from siftmetal_tpu_torch.utils.viz import draw_keypoints
 
     dev = resolve_device(device)
     out = pathlib.Path(out_dir or pathlib.Path(tempfile.gettempdir()) / "video_sfm_torch")
@@ -103,6 +106,12 @@ def main(out_dir=None, device=None):
     frames = [frames_of(descs, i) for i in range(n_frames)]
     for i in range(n_frames):
         print(f"  frame {i}: {int(descs.valid[i].sum())} descriptors")
+    if importlib.util.find_spec("matplotlib") is None:
+        print("  frame0_keypoints.png not drawn: matplotlib (the viz extra) is not installed")
+    else:
+        v = descs.valid[0]
+        draw_keypoints(imgs[0], descs.x[0][v], descs.y[0][v], descs.sigma[0][v],
+                       descs.theta[0][v], path=str(out / "frame0_keypoints.png"))
 
     print("reconstructing...")
     smap = SfmMap(k, SfmConfig(max_cameras=8, match_ratio_threshold=0.8), device=dev)
@@ -129,7 +138,7 @@ def main(out_dir=None, device=None):
         str(out / "trajectory_tum.txt"), np.arange(n_frames) * 0.1,
         smap.cameras[: smap.n_cameras],
     )
-    print(f"artifacts in {out} (keypoint drawing left out: the port has no viz.py yet)")
+    print(f"artifacts in {out}")
     return ate
 
 

@@ -169,16 +169,31 @@ def match_bruteforce(
     test entirely (including the finite-second-distance guard); it does
     NOT loosen the test. Use it when querying maps with near-duplicate
     targets; a caller wanting a loose ratio test passes a value < 1.0."""
+    b1, b2, idx, idx2 = _top2_blocked(
+        query_features, target_features, target_valid, target_block
+    )
+    return _accept(
+        torch.sqrt(b1), torch.sqrt(b2), idx, idx2, query_valid,
+        absolute_threshold, ratio_threshold,
+    )
+
+
+def _top2_blocked(
+    query_features: torch.Tensor,
+    target_features: torch.Tensor,
+    target_valid: torch.Tensor,
+    target_block: int = 65536,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact per-query (best, second-best) SQUARED distances over the
+    valid targets and their indices, ties to the lowest index: one
+    product up to ``target_block`` targets, block products with a running
+    top-2 merge beyond it."""
     t_n = target_features.shape[0]
     inf = float("inf")
     if t_n <= target_block:
         d2 = _sq_dists(query_features, target_features)
         d2 = torch.where(target_valid[None, :], d2, inf)
-        b1, b2, idx, idx2 = _top2(d2)
-        return _accept(
-            torch.sqrt(b1), torch.sqrt(b2), idx, idx2, query_valid,
-            absolute_threshold, ratio_threshold,
-        )
+        return _top2(d2)
 
     q_n = query_features.shape[0]
     dev = query_features.device
@@ -201,10 +216,7 @@ def match_bruteforce(
         i1 = torch.where(c1 < b1, ci, i1)
         b1 = torch.minimum(b1, c1)
         b2, i2 = torch.minimum(lose, rest), ni2
-    return _accept(
-        torch.sqrt(b1), torch.sqrt(b2), i1, i2, query_valid,
-        absolute_threshold, ratio_threshold,
-    )
+    return b1, b2, i1, i2
 
 
 def match_guided(

@@ -25,7 +25,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -117,6 +117,46 @@ def _command(nvcc: str, name: str, out: pathlib.Path) -> List[str]:
     ]
 
 
+def stale(lib: pathlib.Path, stamp: str, sources) -> bool:
+    """Whether ``lib`` must be (re)built: it is missing, the stamp of its
+    command beside it (``.cmd``) is missing or differs from ``stamp``, or
+    one of ``sources`` is newer."""
+    cmd = lib.with_suffix(".cmd")
+    if not lib.exists() or not cmd.exists() or cmd.read_text() != stamp:
+        return True
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
+
+
+def compile_libraries(
+    jobs: Dict[str, Tuple[pathlib.Path, str, Callable[[pathlib.Path], List[str]]]],
+) -> Dict[str, str]:
+    """Run every job's compiler at once: ``name -> (library, stamp, argv
+    for an output path)``. Each compiles to a temporary file of this
+    process that replaces the library when its compiler succeeds, and its
+    stamp is written after. Raises RuntimeError with the failed compilers'
+    output; returns each job's output."""
+    procs = {}
+    for n, (lib, _, argv) in jobs.items():
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.tmp{os.getpid()}")
+        cmd = argv(tmp)
+        procs[n] = (tmp, pathlib.Path(cmd[0]).name, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    logs, failed = {}, []
+    for n, (tmp, tool, p) in procs.items():
+        logs[n] = p.communicate()[0]
+        if p.returncode != 0:
+            failed.append(f"{tool} failed for {n}:\n{logs[n]}")
+        else:
+            lib, stamp, _ = jobs[n]
+            os.replace(tmp, lib)
+            lib.with_suffix(".cmd").write_text(stamp)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
 def _stamp(name: str) -> str:
     """What a library's build depends on besides its sources: the nvcc
     command with the output path left out."""
@@ -124,18 +164,11 @@ def _stamp(name: str) -> str:
 
 
 def _stamp_path(name: str) -> pathlib.Path:
-    return BUILD_DIR / f"lib{name}.cmd"
+    return _lib_path(name).with_suffix(".cmd")
 
 
 def _stale(name: str) -> bool:
-    lib = _lib_path(name)
-    if not lib.exists():
-        return True
-    stamp = _stamp_path(name)
-    if not stamp.exists() or stamp.read_text() != _stamp(name):
-        return True
-    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
-    return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
+    return stale(_lib_path(name), _stamp(name), [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")])
 
 
 def build_all() -> Dict[str, str]:
@@ -144,30 +177,10 @@ def build_all() -> Dict[str, str]:
     names = [n for n in SIGNATURES if _stale(n)]
     if not names:
         return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    procs = {}
-    for n in names:
-        tmp = BUILD_DIR / f"lib{n}.so.tmp{os.getpid()}"
-        procs[n] = (tmp, subprocess.Popen(
-            _command(nvcc, n, tmp), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True,
-        ))
-    logs, failed = {}, []
-    for n, (tmp, p) in procs.items():
-        out, _ = p.communicate()
-        logs[n] = out
-        if p.returncode != 0:
-            failed.append(n)
-        else:
-            os.replace(tmp, _lib_path(n))
-            _stamp_path(n).write_text(_stamp(n))
-    if failed:
-        raise RuntimeError(
-            "nvcc failed for " + ", ".join(failed) + ":\n"
-            + "\n".join(logs[n] for n in failed)
-        )
-    return logs
+    return compile_libraries({
+        n: (_lib_path(n), _stamp(n), lambda out, n=n: _command(nvcc, n, out)) for n in names
+    })
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -302,6 +302,22 @@ def detect_all_octaves_batch(
     return _tail_all_octaves(outs, dogs, tuple(shapes), config, k_move)
 
 
+def detect(
+    dogs: Sequence[torch.Tensor], config: SiftConfig
+) -> Tuple[List[OctaveKeypoints], Dict[str, torch.Tensor]]:
+    """Detection over every octave of ONE frame's DoG stacks ([S-1, H_o,
+    W_o] each): :func:`detect_all_octaves_batch` at B=1, the frame axis
+    taken off every output. Returns (per-octave keypoint slots, counters).
+    The JAX package's per-octave XLA route is not ported: the port has one
+    detection structure (the kernel's slots and the cross-octave tail)."""
+    per_octave, counters = detect_all_octaves_batch([d[None] for d in dogs], config)
+    first = lambda a: a[0]
+    return (
+        [_map(first, kp) for kp in per_octave],
+        {k: first(v) for k, v in counters.items()},
+    )
+
+
 def _tail_all_octaves(
     outs: Sequence[Candidates],
     dogs: Sequence[torch.Tensor],

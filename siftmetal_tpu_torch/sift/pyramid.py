@@ -1,7 +1,8 @@
 """Seed image and the incremental Gaussian cascade (fp32 or bf16 chain).
 
-Port of ``siftmetal_tpu/sift/pyramid.py`` ``seed_image`` :41 and
-``cascade_slices`` :78. Every blur goes through the band kernel wrapper
+Port of ``siftmetal_tpu/sift/pyramid.py`` ``seed_image`` :41,
+``cascade_slices`` :78, ``build_gaussian_octave`` :105, ``build_pyramid``
+:112 and ``pyramid_from_rgb`` :162 (one frame through ``sift/batched.py``). Every blur goes through the band kernel wrapper
 (``ops/kernels/blur.py``): its plain version on the CPU, its CUDA kernel
 on the card. ``cascade_slices`` is the per-stage route, one ``blur_stack``
 a stage; ``sift/batched.py`` runs the same cascade in one launch an
@@ -15,7 +16,7 @@ strict extremum test rejects.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
 import torch
 
@@ -60,3 +61,29 @@ def cascade_slices(
         chain = out.to(torch.bfloat16) if bf16 else out
         slices.append(out)
     return slices
+
+
+def build_gaussian_octave(first: torch.Tensor, o: int, config: SiftConfig) -> torch.Tensor:
+    """Stack [..., S, H, W] of the progressively blurred slices of octave
+    ``o`` (the per-stage cascade)."""
+    return torch.stack(cascade_slices(first, o, config), dim=-3)
+
+
+def build_pyramid(
+    gray: torch.Tensor, config: SiftConfig, n_octaves: int
+) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Full scale space of one [H, W] frame: ``(gaussians, dogs)`` with
+    ``gaussians[o]`` [S, H_o, W_o] (S = n_scales_per_octave + 3) and
+    ``dogs[o]`` [S-1, H_o, W_o]. The batched pyramid (its routing and its
+    kernels) at B=1."""
+    from .batched import build_pyramid_batch
+
+    gaussians, dogs = build_pyramid_batch(gray[None], config, n_octaves)
+    return [g[0] for g in gaussians], [d[0] for d in dogs]
+
+
+def pyramid_from_rgb(image: torch.Tensor, config: SiftConfig, n_octaves: int):
+    """Convenience: [H, W, 3] gamma-space RGB in 0..1 -> (gaussians, dogs)."""
+    from ..ops.image import rgb_to_gray
+
+    return build_pyramid(rgb_to_gray(image), config, n_octaves)

@@ -1089,3 +1089,124 @@ def test_sfm_map_defaults_to_cuda_and_registers_frames(cuda_dev):
     assert stats.final_cost.is_cuda and float(stats.final_cost) <= float(stats.initial_cost)
     assert smap.reprojection_rms() < 1.0
     assert ate_rmse(camera_centers(smap.cameras[:5]), camera_centers(cams)) < 0.05
+
+
+@pytest.fixture
+def one_rank_mesh(cuda_dev):
+    """A one-rank NCCL mesh set up by make_mesh (no launcher), torn down
+    after the test."""
+    import torch.distributed as dist
+
+    from siftmetal_tpu_torch.device import resolve_device
+    from siftmetal_tpu_torch.parallel import make_mesh
+
+    resolve_device("cuda")
+    if dist.is_initialized():
+        pytest.skip("a process group is already set up in this process")
+    try:
+        mesh = make_mesh()
+        assert dist.get_backend() == "nccl" and mesh.size() == 1
+        yield mesh
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_nccl_one_rank_extractor_and_matcher_equal_one_device(one_rank_mesh, cuda_dev):
+    """make_batch_extractor over a one-rank NCCL mesh equals
+    SIFT.extract_batch in every field bit for bit, and the sharded matcher
+    equals match_bruteforce in every field."""
+    from siftmetal_tpu_torch import SIFT
+    from siftmetal_tpu_torch.match import match_bruteforce
+    from siftmetal_tpu_torch.parallel import make_batch_extractor, make_sharded_matcher
+
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.uniform(0, 1, (2, 96, 128)).astype(np.float32)).to(cuda_dev)
+    kb, db, cb = make_batch_extractor(one_rank_mesh, 96, 128, CFG)(frames)
+    k1, d1, c1 = SIFT(96, 128, CFG).extract_batch(frames)
+    for a, b in zip((*kb, *db), (*k1, *d1)):
+        assert a.is_cuda and torch.equal(a, b)
+    assert all(torch.equal(cb[k], c1[k]) for k in c1)
+    tf, tv = db.features.reshape(-1, 128), db.valid.reshape(-1)
+    got = make_sharded_matcher(one_rank_mesh)(db.features[0], db.valid[0], tf, tv)
+    want = match_bruteforce(db.features[0], tf, db.valid[0], tv)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_distributed_ba_makes_no_host_sync(one_rank_mesh, cuda_dev):
+    """make_distributed_ba reads no value on the host in its LM loop (its
+    accept/reject is a torch.where on the all-reduced cost): it runs under
+    torch.cuda.set_sync_debug_mode("error") once its inputs lie on the
+    card, and matches bundle_adjust."""
+    from siftmetal_tpu_torch.parallel import make_distributed_ba, shard_ba_problem
+    from siftmetal_tpu_torch.slam.ba import bundle_adjust
+
+    problem = _ba_problem(cuda_dev)
+    sharded = shard_ba_problem(problem, 1)
+    run = make_distributed_ba(one_rank_mesh, n_iterations=2, huber_delta=2.0)
+    run(sharded)                                          # warm-up: communicator, handles
+    torch.cuda.synchronize()
+    run = make_distributed_ba(one_rank_mesh, n_iterations=4, huber_delta=2.0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cams, lms, (c0, c1) = run(sharded)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out, _ = bundle_adjust(problem, n_iterations=4, huber_delta=2.0,
+                           max_obs_per_landmark=sharded.cam.shape[-1])
+    assert float(c1) < float(c0)
+    torch.testing.assert_close(cams, out.cameras, atol=1e-4, rtol=0)
+    torch.testing.assert_close(lms.reshape(-1, 3), out.landmarks, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", [None, "cpu:gloo,cuda:nccl"])
+def test_init_device_mesh_cuda_keeps_the_work_on_the_card(cuda_dev, backend):
+    """The torch idiom: a group set up without the package (its backend
+    reads "undefined" or a mixed string, not "nccl") and
+    init_device_mesh("cuda", (1,)). The extractor, the matcher and the BA
+    over that mesh return tensors on the card equal to the one-device
+    calls, and the barrier counts one device."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from siftmetal_tpu_torch import SIFT
+    from siftmetal_tpu_torch.match import match_bruteforce
+    from siftmetal_tpu_torch.parallel import (
+        make_batch_extractor,
+        make_distributed_ba,
+        make_sharded_matcher,
+        multihost,
+        shard_ba_problem,
+    )
+    from siftmetal_tpu_torch.slam.ba import bundle_adjust
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already set up in this process")
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        assert dist.get_backend() != "nccl"
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("batch",))
+        rng = np.random.default_rng(0)
+        frames = torch.from_numpy(rng.uniform(0, 1, (2, 96, 128)).astype(np.float32))
+        kb, db, cb = make_batch_extractor(mesh, 96, 128, CFG)(frames.to(cuda_dev))
+        k1, d1, c1 = SIFT(96, 128, CFG).extract_batch(frames.to(cuda_dev))
+        for a, b in zip((*kb, *db), (*k1, *d1)):
+            assert a.is_cuda and torch.equal(a, b)
+        assert all(v.is_cuda and torch.equal(v, c1[k]) for k, v in cb.items())
+        tf, tv = db.features.reshape(-1, 128), db.valid.reshape(-1)
+        got = make_sharded_matcher(mesh)(db.features[0], db.valid[0], tf, tv)
+        want = match_bruteforce(db.features[0], tf, db.valid[0], tv)
+        assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(got, want))
+        problem = _ba_problem(cuda_dev)
+        sharded = shard_ba_problem(problem, 1)
+        cams, lms, _ = make_distributed_ba(mesh, n_iterations=2)(sharded)
+        out, _ = bundle_adjust(problem, n_iterations=2, max_obs_per_landmark=sharded.cam.shape[-1])
+        assert cams.is_cuda and lms.is_cuda
+        torch.testing.assert_close(cams, out.cameras, atol=1e-4, rtol=0)
+        torch.testing.assert_close(lms.reshape(-1, 3), out.landmarks, atol=1e-3, rtol=0)
+        assert multihost.barrier() == 1.0
+    finally:
+        dist.destroy_process_group()

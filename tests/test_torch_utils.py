@@ -287,12 +287,19 @@ def _imported_roots(path: pathlib.Path):
 
 
 def test_no_port_source_imports_jax():
-    """No import statement anywhere in siftmetal_tpu_torch/, chip_smoke.py
-    or the port's examples (function-level imports included) names jax,
-    jaxlib or the JAX package."""
+    """No import statement anywhere in siftmetal_tpu_torch/, chip_smoke.py,
+    the port's examples and dataset runners or the multi-rank test worker
+    (function-level imports included) names jax, jaxlib or the JAX
+    package."""
     files = sorted((ROOT / "siftmetal_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", *sorted((ROOT / "examples").glob("*_torch.py"))]
+    files += [ROOT / "chip_smoke.py", *sorted((ROOT / "examples").glob("*_torch.py")),
+              *sorted((ROOT / "scripts").glob("*_torch.py")),
+              ROOT / "tests" / "torch_parallel_worker.py"]
     assert len(files) > 30 and (ROOT / "siftmetal_tpu_torch" / "slam" / "sfm.py") in files
+    for module in ("parallel/multihost.py", "parallel/extraction.py", "parallel/distributed_ba.py",
+                   "utils/frame_loader.py", "utils/datasets.py", "utils/viz.py"):
+        assert ROOT / "siftmetal_tpu_torch" / module in files, module
+    assert ROOT / "scripts" / "run_tum_torch.py" in files
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}" for f in files
            for mod, line in _imported_roots(f) if mod in ("jax", "jaxlib", "siftmetal_tpu")]
     assert not bad, bad
