@@ -70,7 +70,12 @@ Phases, in order; any failure exits non-zero and prints no result:
     1e-4 / 1e-3 of bundle_adjust); run_elastic with one injected failure;
     FrameLoader on eight PPM frames of the video scene, extracted on the
     card. ms of each beside its one-device counterpart;
- 8. IPOL parity: the butterfly fixture through SIFT(340, 512).extract on
+ 8. flat: eight flat 480x640 frames through every pyramid route (one
+    value a Gaussian and DoG plane) and through extract_batch under the
+    parity configuration and FAST_BF16_CONFIG (no extremum); the
+    butterfly with a flat block pasted in (no strict extremum and one
+    value a slice inside the block's interior);
+ 9. IPOL parity: the butterfly fixture through SIFT(340, 512).extract on
     the card, held to the bounds of tests/test_detect.py and
     tests/test_describe.py; then the fast-preset gates: bf16 against fp32
     keypoint agreement, and butterfly-vs-itself matching.
@@ -239,9 +244,10 @@ ORI_OPS = 90.0
 DESC_OPS = 284.0
 
 
-def _table_ops(b, n_rows, n_cols, tab):
-    """2 flops per tap of a banded pass over [b, n_rows, n_cols] outputs."""
-    return 2.0 * b * n_rows * n_cols * float(tab.ks.sum())
+def _pass_ops(b, n_rows, n_cols, tab):
+    """2 flops per tap of both passes of every slice of ``tab``
+    (``slice_taps``) over [b, n_rows, n_cols] outputs."""
+    return 2.0 * 2.0 * b * n_rows * n_cols * float((2 * tab.radius + 1).sum())
 
 
 def phase_kernels(peaks):
@@ -266,18 +272,18 @@ def phase_kernels(peaks):
     f4 = 4.0
     reports = {}
 
-    # --- seed + octave 0 (fused upsample + blur tables) -----------------
+    # --- seed + octave 0 (upsample, then every slice's blur) -------------
     rep = Report("seed_octave", "siftmetal_tpu_torch/csrc/pyramid.cu",
                  "siftmetal_tpu/ops/pallas/pyramid.py:159", 1e-5)
     g0, d0 = KY.seed_octave(gray, cfg)
     g0p, d0p = KY.seed_octave_plain(gray, cfg)
     err = max(_max_err(g0, g0p), _max_err(d0, d0p))
-    tx, ty = KY.seed_tables(cfg, h, w)
+    tab = KY.slice_taps(KY._seed_sigmas(cfg))
     H, W = g0.shape[-2:]
     rep.row["ms"] = _time_ms(lambda: KY.seed_octave(gray, cfg), 10)
     rep.row["plain_ms"] = _time_ms(lambda: KY.seed_octave_plain(gray, cfg), 2)
     rep.bound(f4 * (gray.numel() + g0.numel() + d0.numel()),
-              _table_ops(b, h, W, tx) + _table_ops(b, H, W, ty) + d0.numel(), peaks)
+              _pass_ops(b, H, W, tab) + d0.numel(), peaks)
     _library(rep, lambda: _seed_library(gray, cfg), (g0, d0), 3)
     rep.check(err)
     reports[rep.row["name"]] = rep
@@ -290,11 +296,11 @@ def phase_kernels(peaks):
     g1, d1 = KY.octave_oneshot(first1, cfg)
     g1p, d1p = KY.octave_oneshot_plain(first1, cfg)
     err = max(_max_err(g1, g1p), _max_err(d1, d1p))
-    tx, ty = KY.oneshot_tables(cfg, *shapes[1])
+    tab = KY.slice_taps(KY.oneshot_rhos(cfg))
     rep.row["ms"] = _time_ms(lambda: KY.octave_oneshot(first1, cfg), 10)
     rep.row["plain_ms"] = _time_ms(lambda: KY.octave_oneshot_plain(first1, cfg), 2)
     rep.bound(f4 * (first1.numel() + g1.numel() + d1.numel()),
-              _table_ops(b, *shapes[1], tx) + _table_ops(b, *shapes[1], ty) + d1.numel(), peaks)
+              _pass_ops(b, *shapes[1], tab) + d1.numel(), peaks)
     _library(rep, lambda: _oneshot_library(first1, cfg), (g1, d1), 5)
     rep.check(err)
     reports[rep.row["name"]] = rep
@@ -305,14 +311,13 @@ def phase_kernels(peaks):
     g2, _ = KY.octave_oneshot(decimate_2x(g1[:, cfg.n_scales_per_octave], shapes[2]).contiguous(), cfg)
     first3 = decimate_2x(g2[:, cfg.n_scales_per_octave], shapes[3]).contiguous()
     rho = cfg.incremental_sigmas(3)[0]
-    bx, by = KB.blur_tables(float(rho), *shapes[3])
-    plain = lambda: KY.band_y_plain(KY.band_x_plain(first3, bx), by, None, False)[0][:, 0]
+    plain = lambda: KY.bands_plain(first3, (float(rho),), None, False)[0][:, 0]
     out3 = KB.blur_stack(first3, rho)
     err = _max_err(out3, plain())
     rep.row["ms"] = _time_ms(lambda: KB.blur_stack(first3, rho), 20)
     rep.row["plain_ms"] = _time_ms(plain, 3)
     rep.bound(f4 * 2 * first3.numel(),
-              _table_ops(b, *shapes[3], bx) + _table_ops(b, *shapes[3], by), peaks)
+              _pass_ops(b, *shapes[3], KY.slice_taps((float(rho),))), peaks)
     _library(rep, lambda: (_blur_cascade_library(first3, (rho,))[0][:, 1],), (out3,), 20)
     print(f"[kernel] band passes: {_ptxas_line('17band_tiles_kernelIffLb0')}", flush=True)
     rep.check(err)
@@ -705,6 +710,7 @@ def _cascade_row(reports, peaks, first, cfg, o, bf16):
     import torch
 
     from siftmetal_tpu_torch.ops.kernels import blur as KB
+    from siftmetal_tpu_torch.ops.kernels import pyramid as KY
     from siftmetal_tpu_torch.sift.pyramid import cascade_slices
 
     name = "blur_cascade_bf16" if bf16 else "blur_cascade"
@@ -733,9 +739,9 @@ def _cascade_row(reports, peaks, first, cfg, o, bf16):
     rep.row["plain_ms"] = _time_ms(lambda: KB.blur_cascade_plain(first, sig, bf16), 2)
     steps_ms = _time_ms(per_step, 20)
     _library(rep, lambda: _blur_cascade_library(first, sig), (g, d), 20)
-    tx, ty = KB.cascade_tables(tuple(float(r) for r in sig), h, w)
+    tab = KY.slice_taps(tuple(float(r) for r in sig))
     rep.bound(first.element_size() * first.numel() + 4.0 * (g.numel() + d.numel()),
-              _table_ops(b, h, w, tx) + _table_ops(b, h, w, ty) + d.numel(), peaks)
+              _pass_ops(b, h, w, tab) + d.numel(), peaks)
     frag = "19blur_cascade_kernelI" + ("fLb1" if bf16 and first.dtype == torch.float32
                                        else "13__nv_bfloat16Lb1" if bf16 else "fLb0")
     print(f"[kernel] {name} at {b}x{h}x{w}: equal to the per-stage route bit for bit; that route "
@@ -1122,13 +1128,13 @@ def _slice2_kernels(reports, peaks, gray, g0, d0, cd, fields, kpc, frame, ori_ar
     g0f, d0f = KY.seed_octave(gray16, fast)
     g0p, d0p = KY.seed_octave_plain(gray16, fast)
     err = max(_max_err(g0f, g0p), _max_err(d0f, d0p))
-    tx, ty = KY.seed_tables(fast, h, w)
+    tab = KY.slice_taps(KY._seed_sigmas(fast))
     rep.row["ms"] = _time_ms(lambda: KY.seed_octave(gray16, fast), 10)
     rep.row["plain_ms"] = _time_ms(lambda: KY.seed_octave_plain(gray16, fast), 2)
     gray32 = gray16.float()
     ms32 = _time_ms(lambda: KY.seed_octave(gray32, fast), 10)
     rep.bound(f2 * gray16.numel() + f4 * (g0f.numel() + d0f.numel()),
-              _table_ops(b, h, w, tx) + _table_ops(b, h, w, ty) + d0f.numel(), peaks)
+              _pass_ops(b, h, w, tab) + d0f.numel(), peaks)
     _library(rep, lambda: _seed_library(gray16, fast), (g0f, d0f), 5)
     print(f"[kernel] seed_octave at {b}x{h}x{w}, same values as fp32 input: {ms32:.4f} ms", flush=True)
     add(rep, err)
@@ -1141,13 +1147,13 @@ def _slice2_kernels(reports, peaks, gray, g0, d0, cd, fields, kpc, frame, ori_ar
     g1p, d1p = KY.octave_oneshot_plain(first1, fast)
     _require(torch.equal(g1f[:, 0], first1.float()), "octave_oneshot_bf16: slice 0 is not the input")
     err = max(_max_err(g1f, g1p), _max_err(d1f, d1p))
-    tx, ty = KY.oneshot_tables(fast, *shapes[1])
+    tab = KY.slice_taps(KY.oneshot_rhos(fast))
     rep.row["ms"] = _time_ms(lambda: KY.octave_oneshot(first1, fast), 10)
     rep.row["plain_ms"] = _time_ms(lambda: KY.octave_oneshot_plain(first1, fast), 2)
     first1_32 = first1.float()
     ms32 = _time_ms(lambda: KY.octave_oneshot(first1_32, fast), 10)
     rep.bound(f2 * first1.numel() + f4 * (g1f.numel() + d1f.numel()),
-              _table_ops(b, *shapes[1], tx) + _table_ops(b, *shapes[1], ty) + d1f.numel(), peaks)
+              _pass_ops(b, *shapes[1], tab) + d1f.numel(), peaks)
     _library(rep, lambda: _oneshot_library(first1, fast), (g1f, d1f), 10)
     print(f"[kernel] octave_oneshot at {b}x{shapes[1][0]}x{shapes[1][1]}, same values as fp32 "
           f"input: {ms32:.4f} ms", flush=True)
@@ -1157,15 +1163,14 @@ def _slice2_kernels(reports, peaks, gray, g0, d0, cd, fields, kpc, frame, ori_ar
                  "siftmetal_tpu/ops/pallas/blur.py:34", 1e-5)
     first2 = decimate_2x(g1f[:, n].to(bf), shapes[2]).contiguous()
     rho = fast.incremental_sigmas(2)[0]
-    bx, by = KB.blur_tables(float(rho), *shapes[2])
-    plain = lambda: KY.band_y_plain(KY.band_x_plain(first2, bx, bf), by, None, False)[0][:, 0]
+    plain = lambda: KY.bands_plain(first2, (float(rho),), None, False, bf)[0][:, 0]
     out2 = KB.blur_stack(first2, rho)
     err = _max_err(out2, plain())
     _library(rep, lambda: (_blur_cascade_library(first2, (rho,))[0][:, 1],), (out2,), 20)
     rep.row["ms"] = _time_ms(lambda: KB.blur_stack(first2, rho), 20)
     rep.row["plain_ms"] = _time_ms(plain, 3)
     rep.bound(f2 * first2.numel() + f4 * first2.numel(),
-              _table_ops(b, *shapes[2], bx) + _table_ops(b, *shapes[2], by), peaks)
+              _pass_ops(b, *shapes[2], KY.slice_taps((float(rho),))), peaks)
     add(rep, err)
     _cascade_row(reports, peaks, first2, fast, 2, True)
 
@@ -2395,6 +2400,151 @@ def parallel_child() -> int:
     return 0
 
 
+# The flat frames of phase_flat, one value a frame; 0.1, 0.3 and 0.9 are
+# not bf16 values, so the bf16 chain rounds them.
+FLAT_VALUES = (0.5, 1.0, 0.1, 0.25, 0.75, 0.0, 0.3, 0.9)
+
+
+def _many_valued(stacks, boxes=None):
+    """(octave, kind, frame, slice) of every plane of the per-octave
+    (gauss, dog) stacks [B, S, H, W] that holds more than one value: in the
+    whole plane, or with ``boxes`` within that octave's (rows, cols)."""
+    import torch
+
+    bad = []
+    for o, pair in enumerate(zip(*stacks)):
+        rows, cols = (slice(None), slice(None)) if boxes is None else boxes[o]
+        for kind, st in zip(("gauss", "dog"), pair):
+            part = st[:, :, rows, cols].flatten(2)
+            if part.shape[-1] == 0:
+                continue
+            diff = (part != part[:, :, :1]).any(-1)
+            bad += [(o, kind, int(b), int(s)) for b, s in torch.nonzero(diff).tolist()]
+    return bad
+
+
+def _strict_extrema(dog, rows, cols):
+    """Samples of the DoG stack [S, H, W] at its interior scales within
+    ``rows`` x ``cols`` (at least one sample inside every border) that are
+    strictly above or below all 26 neighbours: the extremum test of
+    ``n_extrema``."""
+    import torch
+
+    c = dog[1:-1, rows, cols]
+    hi = torch.full_like(c, -math.inf)
+    lo = torch.full_like(c, math.inf)
+    n_s = dog.shape[0]
+    for ds in (-1, 0, 1):
+        for di in (-1, 0, 1):
+            for dj in (-1, 0, 1):
+                if ds == di == dj == 0:
+                    continue
+                nb = dog[1 + ds:n_s - 1 + ds, rows.start + di:rows.stop + di,
+                         cols.start + dj:cols.stop + dj]
+                hi = torch.maximum(hi, nb)
+                lo = torch.minimum(lo, nb)
+    return int(((c > hi) | (c < lo)).sum())
+
+
+def _flat_interiors(cfg, shapes, box):
+    """Per octave, the (rows, cols) slices of the flat input block ``box``
+    ((y0, y1, x0, x1) in input pixels) that no pixel outside it reaches:
+    the block in octave pixels, shrunk by the reach of every blur so far
+    (the seed's upsample and radius, then per octave half the reach before
+    plus the octave's one-shot radius or its cascade's radii summed) and one
+    sample for the extremum test's neighbours."""
+    from siftmetal_tpu_torch.ops.kernels import pyramid as KY
+
+    radius = lambda sig: int(math.ceil(4.0 * sig))
+    out, reach = [], 0
+    for o, (h, w) in enumerate(shapes):
+        if o == 0:
+            reach = max(radius(s) for s in KY._seed_sigmas(cfg)) + 2
+        elif cfg.use_oneshot_pyramid and KY.supports(cfg, h):
+            reach = (reach + 1) // 2 + 1 + max(radius(r) for r in KY.oneshot_rhos(cfg))
+        else:
+            reach = (reach + 1) // 2 + 1 + sum(radius(r) for r in cfg.incremental_sigmas(o))
+        scale = 1.0 / (cfg.delta_min * 2 ** o)
+        y0, y1, x0, x1 = (math.ceil(box[0] * scale), math.floor(box[1] * scale),
+                          math.ceil(box[2] * scale), math.floor(box[3] * scale))
+        m = reach + 1
+        r0, c0 = max(y0 + m, 1), max(x0 + m, 1)
+        out.append((slice(r0, max(r0, min(y1 - m, h - 1))),
+                    slice(c0, max(c0, min(x1 - m, w - 1)))))
+    return out
+
+
+def phase_flat(smi_line):
+    """A flat image stays flat on the card. Eight flat 480x640 frames (one
+    value each, FLAT_VALUES) through build_pyramid_batch on every pyramid
+    route (fused seed + one-shot + fp32 cascade, the fast preset's bf16
+    chain, the unfused seed with the fp32 and bf16 cascades, the fused
+    cascade kernel): every Gaussian and DoG plane holds one value; then
+    extract_batch under the parity configuration and FAST_BF16_CONFIG: no
+    extremum, keypoint or descriptor. Then the butterfly with a flat block
+    pasted in, under both: every slice one value and no strict extremum
+    inside the block's interior (what no pixel outside it reaches); the
+    same extremum test over the whole frame gives extract_batch's
+    n_extrema."""
+    import dataclasses
+
+    import torch
+
+    from siftmetal_tpu_torch import FAST_BF16_CONFIG, SIFT, SiftConfig
+    from siftmetal_tpu_torch.ops.image import rgb_to_gray
+    from siftmetal_tpu_torch.sift.batched import build_pyramid_batch
+    from siftmetal_tpu_torch.utils.io import load_image
+
+    dev = torch.device("cuda")
+    h, w = 480, 640
+    flat = torch.tensor(FLAT_VALUES, device=dev)[:, None, None].expand(8, h, w).contiguous()
+    extracted = {"parity": SiftConfig(), "fast_bf16": FAST_BF16_CONFIG}
+    routes = dict(extracted, unfused=SiftConfig(use_oneshot_pyramid=False),
+                  unfused_bf16=dataclasses.replace(FAST_BF16_CONFIG, use_oneshot_pyramid=False),
+                  pallas_pyramid=SiftConfig(use_oneshot_pyramid=False, use_pallas_pyramid=True))
+    for tag, cfg in routes.items():
+        stacks = build_pyramid_batch(flat, cfg, cfg.num_octaves(h, w))
+        bad = _many_valued(stacks)
+        _require(not bad, f"flat {tag}: {len(bad)} planes hold more than one value, e.g. {bad[:4]}")
+        del stacks
+    line = []
+    for tag, cfg in extracted.items():
+        kps, descs, ctr = SIFT(h, w, config=cfg).extract_batch(flat)
+        ext = [int(v) for v in ctr["n_extrema"].cpu()]
+        _require(not any(ext), f"flat {tag}: n_extrema {ext}")
+        _require(not bool(kps.valid.any()) and not bool(descs.valid.any()),
+                 f"flat {tag}: keypoints or descriptors on a flat frame")
+        line.append(f"{tag} n_extrema {ext}")
+    print(f"[flat] 8 flat {h}x{w} frames ({', '.join(map(str, FLAT_VALUES))}): every Gaussian and "
+          f"DoG plane one value a frame on routes {', '.join(routes)}; {'; '.join(line)}; no "
+          f"keypoint or descriptor ({smi_line})", flush=True)
+
+    img = torch.from_numpy(load_image(str(ROOT / "tests" / "fixtures" / "butterfly.ppm"))).to(dev)
+    box = (40, 300, 64, 448)
+    img[box[0]:box[1], box[2]:box[3]] = 0.5
+    gray = rgb_to_gray(img)[None].contiguous()
+    for tag, cfg in extracted.items():
+        n_oct = cfg.num_octaves(*gray.shape[-2:])
+        shapes = cfg.octave_shapes(*gray.shape[-2:], n_oct)
+        inner = _flat_interiors(cfg, shapes, box)
+        stacks = build_pyramid_batch(gray, cfg, n_oct)
+        bad = _many_valued(stacks, inner)
+        _require(not bad, f"flat block {tag}: {len(bad)} planes vary inside the block, e.g. {bad[:4]}")
+        n_in = [_strict_extrema(d[0], r, c) for d, (r, c) in zip(stacks[1], inner)]
+        _require(not any(n_in), f"flat block {tag}: strict extrema inside the block {n_in}")
+        n_all = sum(_strict_extrema(d[0], slice(1, d.shape[-2] - 1), slice(1, d.shape[-1] - 1))
+                    for d in stacks[1])
+        _, _, ctr = SIFT(*gray.shape[-2:], config=cfg).extract_batch(gray)
+        _require(n_all == int(ctr["n_extrema"][0]),
+                 f"flat block {tag}: the extremum test counts {n_all}, extract_batch "
+                 f"{int(ctr['n_extrema'][0])}")
+        sizes = [f"{r.stop - r.start}x{c.stop - c.start}" for r, c in inner]
+        print(f"[flat] butterfly with rows {box[0]}:{box[1]}, columns {box[2]}:{box[3]} flat, {tag}: "
+              f"interiors by octave {' '.join(sizes)}, every slice one value there, strict extrema "
+              f"there {n_in}; n_extrema of the frame {int(ctr['n_extrema'][0])}, the same as the "
+              f"extremum test over every octave ({smi_line})", flush=True)
+
+
 def phase_ipol(smi_line):
     """The butterfly on the card, held to the IPOL fixture bounds."""
     import numpy as np
@@ -2547,6 +2697,7 @@ def _main_phases(child, smi_line, t0) -> int:
     phase_pair(reports, smi_line)
     phase_sfm(reports, smi_line)
     phase_parallel(child, smi_line)
+    phase_flat(smi_line)
     phase_ipol(smi_line)
     phase_fast_gates(smi_line)
     print(f"[done] {time.time() - t0:.1f} s", flush=True)

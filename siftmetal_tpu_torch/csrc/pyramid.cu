@@ -1,33 +1,35 @@
-// Banded separable Gaussian passes: the pyramid kernels of the port.
+// Separable Gaussian passes: the pyramid kernels of the port.
 //
 // Replaces the TPU kernels siftmetal_tpu/ops/pallas/pyramid.py
 // _oneshot_kernel (through seed_octave_pallas and octave_oneshot_pallas)
 // and siftmetal_tpu/ops/pallas/blur.py _blur_kernel (blur_pallas).
 //
-// Every 1-D pass of every slice is a banded matrix with the half-sample
-// reflection folded in (and, for the seed, the 2x bilinear upsample
-// composed in). The host (ops/kernels/pyramid.py tile_pass) hands it over
-// in blocks of kBlock neighbouring outputs: for block g of slice s, a
-// first input base[s][g], a reach span[s][g] and taps[s][g][m][p], the tap
-// of output p on input base + m, zero outside that output's own taps. A
-// thread then slides one window of inputs under its kBlock outputs, for
-// two rows (X pass) or two columns (Y pass) at once: one float4 tap load
-// and two input loads for 2 kBlock multiply-adds. Since
-// the zero taps before an output's first tap leave its sum at +0 and those
-// after its last add +-0, every output is the sum of its own taps in table
-// order, tap 0 first: the per-output sum of the parent kernels, bit for
-// bit.
+// Both 1-D passes of slice s apply that slice's Gaussian taps t[0..2r]
+// (host: ops/kernels/pyramid.py slice_taps) to the input read through the
+// half-sample reflection: output i is sum_k t[k] x[reflect(i - r + k)],
+// one chain from 0, tap 0 first, at every output alike, so a constant
+// input gives a constant slice. (The TPU kernel folds the reflected taps
+// into the edge outputs' matrix rows instead; on a flat image that leaves
+// rounding noise which the extremum test reads as extrema.) The
+// reflection lives in the window load: each padded window index reads its
+// reflected source. For the seed at delta_min 0.5 the window holds the 2x
+// bilinear upsample of the input, made as it is loaded (even samples
+// copy, odd ones are neighbour midpoints 0.5 (a + b), the last sample
+// repeated: ops/image.py upsample_bilinear_2x, rounded as there), and the
+// passes blur that plane, as the plain version does.
 //
 // band_tiles (the seed, the one-shot octave and the one-slice blur): one
-// block per kTileRows x kTileCols output tile of one frame. It copies the
-// input window that the tile's taps reach over all slices (host table
-// `win`) into shared memory once (cp.async for fp32), then for each slice
-// runs the X pass from that window into a shared X buffer (the window's
-// rows x the tile's columns) and the Y pass from the X buffer into
-// gauss[s]. The tile's taps of a slice are staged in shared memory by
-// cp.async behind the pass before them. The DoG comes from the previous
-// slice, which each thread keeps in registers. Nothing goes to device
-// memory but the outputs.
+// block per kTile x kTile output tile of one frame. It copies every
+// slice's taps and the tile's window (the tile and R, the largest radius,
+// on every side) into shared memory once (cp.async for an fp32 input read
+// as it is), then for each slice runs the X pass from the window into a
+// shared X buffer (the tile's columns at the kTile + 2r rows its Y pass
+// reads) and the Y pass from the X buffer into gauss[s]. A thread computes
+// kBlock neighbouring outputs of two rows (X) or of two columns (Y) and
+// slides a register window of kBlock inputs along the taps: a shared load
+// a row or column and one broadcast tap for 2 kBlock multiply-adds. The
+// DoG comes from the previous slice, which each thread keeps in
+// registers. Nothing goes to device memory but the outputs.
 //
 // blur_cascade (the incremental cascade of one octave under 176 rows, in
 // one launch): a cooperative grid of resident blocks walks the same tiles
@@ -44,8 +46,10 @@
 // every Gaussian and DoG it writes is fp32.
 //
 // Bound on an H100: bytes (the seed of a 640x480 batch of 8 writes 11
-// planes of 8 x 960 x 1280 fp32, 432 MB; its 1.2 G taps are 0.04 ms at the
-// fp32 rate). No tensor cores, no TF32.
+// planes of 8 x 960 x 1280 fp32, 432 MB); the seed's radii (5 to 20 at the
+// 2x resolution) make 2 x 150 multiply-adds a sample, 2.9 G in all, 0.09
+// ms at the fp32 rate, plus the X pass's halo rows. No tensor cores, no
+// TF32.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -59,16 +63,14 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kTileRows = 64;  // output rows of a tile
-constexpr int kTileCols = 64;  // output columns of a tile
-constexpr int kBlock = 4;      // outputs of a tap block
+constexpr int kTile = 64;      // output rows and columns of a tile
+constexpr int kBlock = 4;      // neighbouring outputs of a thread
 constexpr int kThreads = 512;  // 16 warps: one Y-pass row block each
 constexpr int kWarps = kThreads / 32;
-constexpr int kXBlocks = kTileCols / kBlock;  // X-pass tap blocks of a tile
-constexpr int kYBlocks = kTileRows / kBlock;  // Y-pass tap blocks of a tile
-constexpr int kXPitch = kTileCols + 1;        // odd: X-pass stores down rows
-static_assert(kYBlocks == kWarps, "one Y row block a warp");
-static_assert(kTileCols == 64, "a lane owns columns lane and lane + 32");
+constexpr int kXGroups = kTile / kBlock;  // X-pass column groups of a tile
+constexpr int kXPitch = kTile + 1;        // odd: X-pass stores down rows
+static_assert(kTile / kBlock == kWarps, "one Y row block a warp");
+static_assert(kTile == 64, "a lane owns columns lane and lane + 32");
 
 typedef __nv_bfloat16 bf16;
 
@@ -78,26 +80,25 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// One pass direction's tables in tap blocks (host: tile_pass).
-struct Pass {
-  const int* base;    // [S][nb]
-  const int* span;    // [S][nb]
-  const float* taps;  // [S][nb][kp][kBlock]
-  const int* win;     // [S][n_tiles][2]: input rows/cols [lo, hi) of a tile
-  int nb, kp, n_tiles;
+// The taps of a launch (host: slice_taps): slice s applies
+// taps[s * K + k], k <= 2 radius[s].
+struct Taps {
+  const float* taps;  // [S][K]
+  const int* radius;  // [S]
+  int K;
 };
 
 // One call of the tile body: S slices of the input `in` [B, h_in, w_in]
-// (frame stride in_frame) into gauss planes g_off + s and dog planes
-// g_off + s - 1 (frame strides g_frame, d_frame). `prev` [B, h_out, w_out]
-// (frame stride prev_frame), where given, is the slice before slice 0:
-// the first DoG starts from it, and with copy_prev it is also written to
-// gauss plane g_off - 1.
+// (frame stride in_frame; with `up`, of its 2x upsample) into gauss
+// planes g_off + s and dog planes g_off + s - 1 (frame strides g_frame,
+// d_frame). `prev` [B, h_out, w_out] (frame stride prev_frame), where
+// given, is the slice before slice 0: the first DoG starts from it, and
+// with copy_prev it is also written to gauss plane g_off - 1.
 struct Band {
   const void* in;
   long long in_frame;
-  int h_in, w_in, S, h_out, w_out;
-  Pass x, y;
+  int h_in, w_in, up, S, h_out, w_out;
+  Taps t;
   const void* prev;
   long long prev_frame;
   int copy_prev;
@@ -106,190 +107,207 @@ struct Band {
   int g_off;
   float* dog;
   long long d_frame;
-  int rows_in, cols_in, rows_x;  // shared extents: window and X buffer rows
 };
 
-__host__ __device__ inline int in_pitch(int cols_in) { return cols_in | 1; }
+// Side of the window of a tile whose largest radius is R.
+__host__ __device__ inline int win_side(int R) { return kTile + 2 * R; }
+// Floats of the taps in shared memory (a float4 multiple).
+__host__ __device__ inline int tap_floats(int S, int K) { return (S * K + 3) & ~3; }
 
-// Floats of shared memory a block takes (taps first: float4-aligned).
-__host__ __device__ inline long long band_smem_floats(const Band& a) {
-  return (long long)kXBlocks * a.x.kp * kBlock +
-         (long long)kYBlocks * a.y.kp * kBlock +
-         (long long)a.rows_x * kXPitch +
-         (long long)a.rows_in * in_pitch(a.cols_in);
+// Floats of shared memory a block takes: taps, X buffer, window.
+__host__ __device__ inline long long band_smem_floats(int S, int K, int R) {
+  const long long n = win_side(R);
+  return tap_floats(S, K) + n * kXPitch + n * (n | 1);
 }
 
-template <class T>
-__device__ __forceinline__ T load_cg(const T* p) {
-  return __ldcg(p);
+// The period-2n half-sample reflection (ops/gaussian.py conv1d_sym): any
+// padded index, a radius above n included.
+__device__ __forceinline__ int reflect(int i, int n) {
+  const int p = 2 * n;
+  int m = i % p;
+  if (m < 0) m += p;
+  return m < n ? m : p - 1 - m;
 }
 
-// Copies n float4 of taps from global to shared memory with cp.async (the
-// caller commits); the tables are read-only, so the copy reads L2 only.
-__device__ __forceinline__ void copy_taps(float* dst, const float* src, int n) {
-  for (int k = threadIdx.x; k < n; k += kThreads)
-    __pipeline_memcpy_async((float4*)dst + k, (const float4*)src + k, 16);
+// One input sample. kConst: nothing in the launch writes the input, so it
+// goes through the read-only cache; otherwise to L2 (__ldcg), which the
+// cascade needs after a grid.sync(). kRound: read rounded to bf16.
+template <class T, bool kRound, bool kConst>
+__device__ __forceinline__ float load_in(const T* p) {
+  float v;
+  if constexpr (kConst)
+    v = to_f32(__ldg(p));
+  else
+    v = to_f32(__ldcg(p));
+  return kRound ? round_bf16(v) : v;
 }
 
-// The tile (tx, ty) of frame b. kAsync: fp32 input through cp.async (only
-// where no other block of the launch writes it); otherwise every global
-// read of the input and of `prev` goes to L2 (__ldcg), which the cascade
-// needs after a grid.sync(). kRound: the input is read rounded to bf16.
+// Column c of the 2x column upsample of row i of `src` [h, w].
+template <class T, bool kRound, bool kConst>
+__device__ __forceinline__ float up_col(const T* src, int w, int i, int c) {
+  const T* row = src + (long long)i * w;
+  const int j = c >> 1;
+  const float v = load_in<T, kRound, kConst>(row + j);
+  if (!(c & 1)) return v;
+  return __fmul_rn(0.5f, __fadd_rn(v, load_in<T, kRound, kConst>(row + min(j + 1, w - 1))));
+}
+
+// Sample (r, c) of the 2x bilinear upsample of `src` [h, w]
+// (ops/image.py upsample_bilinear_2x: columns first, then rows).
+template <class T, bool kRound, bool kConst>
+__device__ __forceinline__ float upsampled(const T* src, int h, int w, int r, int c) {
+  const int i = r >> 1;
+  const float v = up_col<T, kRound, kConst>(src, w, i, c);
+  if (!(r & 1)) return v;
+  return __fmul_rn(0.5f, __fadd_rn(v, up_col<T, kRound, kConst>(src, w, min(i + 1, h - 1), c)));
+}
+
+// acc + t v: contracted (fp32 outputs) or with separate roundings (the
+// bf16 chain's X pass).
+template <bool kSeparate>
+__device__ __forceinline__ float mad(float t, float v, float acc) {
+  return kSeparate ? __fadd_rn(acc, __fmul_rn(t, v)) : __fmaf_rn(t, v, acc);
+}
+
+// The tile (tx, ty) of frame b. kConst: see load_in; an fp32 input
+// without `up` then comes in by cp.async. kRound: the input is read
+// rounded to bf16. kMidBf16: the X pass is the bf16 chain's.
 //
-// A slice's X taps are copied while the previous slice's Y pass runs and
-// its Y taps while its own X pass runs (cp.async), so each slice waits at
-// two barriers: before its X pass and before its Y pass.
-template <class TIn, class TPrev, bool kRound, bool kMidBf16, bool kAsync>
+// Each slice waits at two barriers: after its X pass and after its Y
+// pass (the X buffer is then free for the next slice, or the window and
+// the taps for the block's next tile in the cascade).
+template <class TIn, class TPrev, bool kRound, bool kMidBf16, bool kConst>
 __device__ void band_tile(const Band& a, int tx, int ty, int b, float* smem) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* xt = smem;                                  // [kXBlocks][kp][kBlock]
-  float* yt = xt + kXBlocks * a.x.kp * kBlock;       // [kYBlocks][kp][kBlock]
-  float* xb = yt + kYBlocks * a.y.kp * kBlock;       // [rows_x][kXPitch]
-  float* win = xb + a.rows_x * kXPitch;              // [rows_in][ip]
-  const int ip = in_pitch(a.cols_in);
-  const int nx = kXBlocks * a.x.kp, ny = kYBlocks * a.y.kp;  // float4 a slice
-  const float* xtaps = a.x.taps + (long long)tx * kXBlocks * a.x.kp * kBlock;
-  const float* ytaps = a.y.taps + (long long)ty * kYBlocks * a.y.kp * kBlock;
-  const long long x_slice = (long long)a.x.nb * a.x.kp * kBlock;
-  const long long y_slice = (long long)a.y.nb * a.y.kp * kBlock;
+  int R = 0;
+  for (int s = 0; s < a.S; ++s) R = max(R, __ldg(a.t.radius + s));
+  const int n = win_side(R), ip = n | 1, K = a.t.K;
+  float* taps = smem;                          // [S][K]
+  float* xb = taps + tap_floats(a.S, K);       // [kTile + 2 r][kXPitch]
+  float* win = xb + n * kXPitch;               // [n][ip]
+  const int i0 = ty * kTile, j0 = tx * kTile;  // the tile's first output
 
-  // The window every slice's taps reach.
-  int r0 = 1 << 30, r1 = 0, c0 = 1 << 30, c1 = 0;
-  for (int s = 0; s < a.S; ++s) {
-    const int* wy = a.y.win + 2 * ((long long)s * a.y.n_tiles + ty);
-    const int* wx = a.x.win + 2 * ((long long)s * a.x.n_tiles + tx);
-    r0 = min(r0, wy[0]);
-    r1 = max(r1, wy[1]);
-    c0 = min(c0, wx[0]);
-    c1 = max(c1, wx[1]);
-  }
-  // A block that walks several tiles (the cascade) is past the last X
-  // pass of its previous tile here: the window and the X taps are free.
-  copy_taps(xt, xtaps, nx);
+  for (int k = tid; k < a.S * K; k += kThreads) taps[k] = __ldg(a.t.taps + k);
   {
+    // Window sample (r, c) is padded output (i0 - R + r, j0 - R + c).
     const TIn* src = (const TIn*)a.in + (long long)b * a.in_frame;
-    const int nc = c1 - c0, n = (r1 - r0) * nc;
-    for (int p = tid; p < n; p += kThreads) {
-      const int r = p / nc, c = p - r * nc;
-      const TIn* g = src + (long long)(r0 + r) * a.w_in + c0 + c;
+    const int hp = a.up ? 2 * a.h_in : a.h_in, wp = a.up ? 2 * a.w_in : a.w_in;
+    for (int p = tid; p < n * n; p += kThreads) {
+      const int r = p / n, c = p - r * n;
+      const int sr = reflect(i0 - R + r, hp), sc = reflect(j0 - R + c, wp);
       float* d = win + r * ip + c;
-      if constexpr (kAsync) {
-        __pipeline_memcpy_async(d, g, sizeof(float));
+      if (a.up) {
+        *d = upsampled<TIn, kRound, kConst>(src, a.h_in, a.w_in, sr, sc);
       } else {
-        const float v = to_f32(load_cg(g));
-        *d = kRound ? round_bf16(v) : v;
+        const TIn* g = src + (long long)sr * a.w_in + sc;
+        if constexpr (kConst && !kRound && sizeof(TIn) == sizeof(float))
+          __pipeline_memcpy_async(d, g, sizeof(float));
+        else
+          *d = load_in<TIn, kRound, kConst>(g);
       }
     }
   }
   __pipeline_commit();
 
-  // Each thread's outputs: rows ty*T + warp*kBlock + p, columns
-  // tx*64 + lane + 32 q.
+  // Each thread's outputs: rows i0 + warp kBlock + p, columns
+  // j0 + lane + 32 q.
   const long long plane = (long long)a.h_out * a.w_out;
-  const int i0 = ty * kTileRows + warp * kBlock, j0 = tx * kTileCols + lane;
+  const int iw = i0 + warp * kBlock, jl = j0 + lane;
   float prev[2][kBlock];
 #pragma unroll
   for (int p = 0; p < kBlock; ++p)
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       prev[q][p] = 0.f;
-      const int i = i0 + p, j = j0 + 32 * q;
+      const int i = iw + p, j = jl + 32 * q;
       if (a.prev && i < a.h_out && j < a.w_out) {
         const long long o = (long long)i * a.w_out + j;
         prev[q][p] = to_f32(
-            load_cg((const TPrev*)a.prev + (long long)b * a.prev_frame + o));
+            __ldcg((const TPrev*)a.prev + (long long)b * a.prev_frame + o));
         if (a.copy_prev)
           a.gauss[(long long)b * a.g_frame + (a.g_off - 1) * plane + o] =
               prev[q][p];
       }
     }
+  __pipeline_wait_prior(0);
+  __syncthreads();
 
   for (int s = 0; s < a.S; ++s) {
-    // X taps (and on slice 0 the window) have landed for every thread, and
-    // the previous slice's Y pass is done with xb and the Y taps.
-    __pipeline_wait_prior(0);
-    __syncthreads();
-    copy_taps(yt, ytaps + s * y_slice, ny);
-    __pipeline_commit();
+    const int r = __ldg(a.t.radius + s), nk = 2 * r + 1;
+    const float* tp = taps + s * K;
 
-    // X pass: the rows slice s's Y taps reach, every tap block of the
-    // tile's columns. A thread takes rows `row` and `row + half` of one
-    // block (neighbouring threads on neighbouring rows) and slides one
-    // window of inputs under the block's outputs.
-    const int* wy = a.y.win + 2 * ((long long)s * a.y.n_tiles + ty);
-    const int xlo = wy[0], nr = wy[1] - wy[0], half = (nr + 1) >> 1;
-    {
-      const int* xbase = a.x.base + (long long)s * a.x.nb + tx * kXBlocks;
-      const int* xspan = a.x.span + (long long)s * a.x.nb + tx * kXBlocks;
-      for (int t = tid; t < half * kXBlocks; t += kThreads) {
-        const int row = t % half, g = t / half;
-        const int row2 = min(row + half, nr - 1);
-        const float* src0 = win + (xlo - r0 + row) * ip + (xbase[g] - c0);
-        const float* src1 = src0 + (row2 - row) * ip;
-        const float4* tp = (const float4*)(xt + g * a.x.kp * kBlock);
-        const int span = xspan[g];
-        float acc0[kBlock] = {0.f, 0.f, 0.f, 0.f};
-        float acc1[kBlock] = {0.f, 0.f, 0.f, 0.f};
+    // X pass: window rows R - r + row, row < kTile + 2 r (the rows the Y
+    // pass reads), at the tile's columns. A thread takes rows `row` and
+    // `row + half` of one column group (neighbouring threads on
+    // neighbouring rows); output p of the group reads window column
+    // R - r + g kBlock + p + k at tap k.
+    const int nr = kTile + 2 * r, half = (nr + 1) >> 1;
+    for (int t = tid; t < half * kXGroups; t += kThreads) {
+      const int row = t % half, g = t / half;
+      const int row2 = min(row + half, nr - 1);
+      const float* src0 = win + (R - r + row) * ip + (R - r + g * kBlock);
+      const float* src1 = src0 + (row2 - row) * ip;
+      float acc0[kBlock] = {0.f, 0.f, 0.f, 0.f};
+      float acc1[kBlock] = {0.f, 0.f, 0.f, 0.f};
+      float v0[kBlock], v1[kBlock];
+#pragma unroll
+      for (int p = 0; p + 1 < kBlock; ++p) {
+        v0[p] = src0[p];
+        v1[p] = src1[p];
+      }
 #pragma unroll 4
-        for (int m = 0; m < span; ++m) {
-          const float4 t4 = tp[m];
-          const float v0 = src0[m], v1 = src1[m];
-          if constexpr (kMidBf16) {
-            acc0[0] = __fadd_rn(acc0[0], __fmul_rn(t4.x, v0));
-            acc0[1] = __fadd_rn(acc0[1], __fmul_rn(t4.y, v0));
-            acc0[2] = __fadd_rn(acc0[2], __fmul_rn(t4.z, v0));
-            acc0[3] = __fadd_rn(acc0[3], __fmul_rn(t4.w, v0));
-            acc1[0] = __fadd_rn(acc1[0], __fmul_rn(t4.x, v1));
-            acc1[1] = __fadd_rn(acc1[1], __fmul_rn(t4.y, v1));
-            acc1[2] = __fadd_rn(acc1[2], __fmul_rn(t4.z, v1));
-            acc1[3] = __fadd_rn(acc1[3], __fmul_rn(t4.w, v1));
-          } else {
-            acc0[0] = __fmaf_rn(t4.x, v0, acc0[0]);
-            acc0[1] = __fmaf_rn(t4.y, v0, acc0[1]);
-            acc0[2] = __fmaf_rn(t4.z, v0, acc0[2]);
-            acc0[3] = __fmaf_rn(t4.w, v0, acc0[3]);
-            acc1[0] = __fmaf_rn(t4.x, v1, acc1[0]);
-            acc1[1] = __fmaf_rn(t4.y, v1, acc1[1]);
-            acc1[2] = __fmaf_rn(t4.z, v1, acc1[2]);
-            acc1[3] = __fmaf_rn(t4.w, v1, acc1[3]);
-          }
-        }
-        float* dst0 = xb + row * kXPitch + g * kBlock;
-        float* dst1 = xb + (row + half) * kXPitch + g * kBlock;
+      for (int k = 0; k < nk; ++k) {
+        v0[kBlock - 1] = src0[k + kBlock - 1];
+        v1[kBlock - 1] = src1[k + kBlock - 1];
+        const float tk = tp[k];
 #pragma unroll
         for (int p = 0; p < kBlock; ++p) {
-          dst0[p] = kMidBf16 ? round_bf16(acc0[p]) : acc0[p];
-          if (row + half < nr) dst1[p] = kMidBf16 ? round_bf16(acc1[p]) : acc1[p];
+          acc0[p] = mad<kMidBf16>(tk, v0[p], acc0[p]);
+          acc1[p] = mad<kMidBf16>(tk, v1[p], acc1[p]);
+        }
+#pragma unroll
+        for (int p = 0; p + 1 < kBlock; ++p) {
+          v0[p] = v0[p + 1];
+          v1[p] = v1[p + 1];
         }
       }
+      float* dst0 = xb + row * kXPitch + g * kBlock;
+      float* dst1 = xb + (row + half) * kXPitch + g * kBlock;
+#pragma unroll
+      for (int p = 0; p < kBlock; ++p) {
+        dst0[p] = kMidBf16 ? round_bf16(acc0[p]) : acc0[p];
+        if (row + half < nr) dst1[p] = kMidBf16 ? round_bf16(acc1[p]) : acc1[p];
+      }
     }
-    // xb is filled and the X taps are free; the Y taps have landed.
-    __pipeline_wait_prior(0);
     __syncthreads();
-    if (s + 1 < a.S) copy_taps(xt, xtaps + (s + 1) * x_slice, nx);
-    __pipeline_commit();
 
     // Y pass: warp w takes the tile's rows [w kBlock, (w + 1) kBlock) at
-    // columns lane and lane + 32, and writes the Gaussian and the DoG.
+    // columns lane and lane + 32; output row w kBlock + p reads X buffer
+    // row w kBlock + p + k at tap k. Then the Gaussian and the DoG.
     {
-      const int g = ty * kYBlocks + warp;
-      const int base = a.y.base[(long long)s * a.y.nb + g];
-      const int span = a.y.span[(long long)s * a.y.nb + g];
-      const float* src = xb + (base - xlo) * kXPitch + lane;
-      const float4* tp = (const float4*)(yt + warp * a.y.kp * kBlock);
+      const float* src = xb + warp * kBlock * kXPitch + lane;
       float acc[2][kBlock] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      float v[2][kBlock];
+#pragma unroll
+      for (int p = 0; p + 1 < kBlock; ++p) {
+        v[0][p] = src[p * kXPitch];
+        v[1][p] = src[p * kXPitch + 32];
+      }
 #pragma unroll 4
-      for (int m = 0; m < span; ++m) {
-        const float4 t4 = tp[m];
-        const float v0 = src[m * kXPitch], v1 = src[m * kXPitch + 32];
-        acc[0][0] = __fmaf_rn(t4.x, v0, acc[0][0]);
-        acc[0][1] = __fmaf_rn(t4.y, v0, acc[0][1]);
-        acc[0][2] = __fmaf_rn(t4.z, v0, acc[0][2]);
-        acc[0][3] = __fmaf_rn(t4.w, v0, acc[0][3]);
-        acc[1][0] = __fmaf_rn(t4.x, v1, acc[1][0]);
-        acc[1][1] = __fmaf_rn(t4.y, v1, acc[1][1]);
-        acc[1][2] = __fmaf_rn(t4.z, v1, acc[1][2]);
-        acc[1][3] = __fmaf_rn(t4.w, v1, acc[1][3]);
+      for (int k = 0; k < nk; ++k) {
+        v[0][kBlock - 1] = src[(k + kBlock - 1) * kXPitch];
+        v[1][kBlock - 1] = src[(k + kBlock - 1) * kXPitch + 32];
+        const float tk = tp[k];
+#pragma unroll
+        for (int p = 0; p < kBlock; ++p) {
+          acc[0][p] = __fmaf_rn(tk, v[0][p], acc[0][p]);
+          acc[1][p] = __fmaf_rn(tk, v[1][p], acc[1][p]);
+        }
+#pragma unroll
+        for (int p = 0; p + 1 < kBlock; ++p) {
+          v[0][p] = v[0][p + 1];
+          v[1][p] = v[1][p + 1];
+        }
       }
       const bool dog = a.dog && (s > 0 || a.prev);
       float* gp = a.gauss + (long long)b * a.g_frame + (long long)(a.g_off + s) * plane;
@@ -300,7 +318,7 @@ __device__ void band_tile(const Band& a, int tx, int ty, int b, float* smem) {
       for (int p = 0; p < kBlock; ++p)
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
-          const int i = i0 + p, j = j0 + 32 * q;
+          const int i = iw + p, j = jl + 32 * q;
           if (i < a.h_out && j < a.w_out) {
             const long long o = (long long)i * a.w_out + j;
             gp[o] = acc[q][p];
@@ -309,31 +327,25 @@ __device__ void band_tile(const Band& a, int tx, int ty, int b, float* smem) {
           prev[q][p] = acc[q][p];
         }
     }
+    __syncthreads();
   }
 }
 
 template <class TIn, class TPrev, bool kMidBf16>
 __global__ void __launch_bounds__(kThreads, 2) band_tiles_kernel(Band a) {
   extern __shared__ float4 smem4[];
-  constexpr bool kAsync = sizeof(TIn) == sizeof(float);
-  band_tile<TIn, TPrev, false, kMidBf16, kAsync>(a, blockIdx.x, blockIdx.y,
-                                                 blockIdx.z, (float*)smem4);
+  band_tile<TIn, TPrev, false, kMidBf16, true>(a, blockIdx.x, blockIdx.y,
+                                               blockIdx.z, (float*)smem4);
 }
 
 // Stage s of the cascade: slice s (first, or gauss[:, s]) blurred by the
-// tables' slice s into gauss[:, s + 1] and dog[:, s].
+// taps of slice s into gauss[:, s + 1] and dog[:, s].
 __device__ inline Band stage_of(const Band& a, int s, const void* first,
                                 long long plane) {
   Band st = a;
   st.S = 1;
-  st.x.base += (long long)s * a.x.nb;
-  st.x.span += (long long)s * a.x.nb;
-  st.x.taps += (long long)s * a.x.nb * a.x.kp * kBlock;
-  st.x.win += 2LL * s * a.x.n_tiles;
-  st.y.base += (long long)s * a.y.nb;
-  st.y.span += (long long)s * a.y.nb;
-  st.y.taps += (long long)s * a.y.nb * a.y.kp * kBlock;
-  st.y.win += 2LL * s * a.y.n_tiles;
+  st.t.taps += (long long)s * a.t.K;
+  st.t.radius += s;
   st.in = s == 0 ? first : (const void*)(a.gauss + s * plane);
   st.in_frame = s == 0 ? plane : a.g_frame;
   st.prev = st.in;
@@ -350,59 +362,44 @@ __global__ void __launch_bounds__(kThreads) blur_cascade_kernel(Band a, int B) {
   float* smem = (float*)smem4;
   cg::grid_group grid = cg::this_grid();
   const long long plane = (long long)a.h_out * a.w_out;
-  const int tiles = a.x.n_tiles * a.y.n_tiles;
+  const int nx = (a.w_out + kTile - 1) / kTile, ny = (a.h_out + kTile - 1) / kTile;
+  const int tiles = nx * ny;
   for (int s = 0; s < a.S; ++s) {
     const Band st = stage_of(a, s, a.in, plane);
     for (int t = blockIdx.x; t < tiles * B; t += gridDim.x) {
       const int b = t / tiles, r = t - b * tiles;
       if (s == 0)
-        band_tile<TFirst, TFirst, kBf16, kBf16, false>(st, r % a.x.n_tiles,
-                                                       r / a.x.n_tiles, b, smem);
+        band_tile<TFirst, TFirst, kBf16, kBf16, false>(st, r % nx, r / nx, b, smem);
       else
-        band_tile<float, float, kBf16, kBf16, false>(st, r % a.x.n_tiles,
-                                                     r / a.x.n_tiles, b, smem);
+        band_tile<float, float, kBf16, kBf16, false>(st, r % nx, r / nx, b, smem);
     }
     if (s + 1 < a.S) grid.sync();
   }
 }
 
-// The host table of a launch (ops/kernels/pyramid.py launch_tables), one
-// int64 each: per pass (x, then y) base, span, taps and win pointers, nb,
-// kp, n_tiles; then rows_in, cols_in, rows_x and the tile geometry the
-// tables were cut for (tile rows, tile columns, block), which must be the
-// compiled one.
-enum Table {
-  kXPass = 0,
-  kYPass = 7,
-  kRowsIn = 14,
-  kColsIn,
-  kRowsX,
-  kGeomRows,
-  kGeomCols,
-  kGeomBlock,
-};
+// The host table of a launch (ops/kernels/pyramid.py launch_table), one
+// int64 each: the taps and radius pointers, the slice count S, the taps a
+// slice K and the largest radius R.
+enum Table { kTapsPtr = 0, kRadiusPtr, kSlices, kTapsPerSlice, kMaxRadius };
 
-Pass pass_of(const long long* t) {
-  return Pass{(const int*)t[0], (const int*)t[1], (const float*)t[2],
-              (const int*)t[3], (int)t[4], (int)t[5], (int)t[6]};
-}
-
-// The Band of a launch over `in` [B, H_in, W_in] into `gauss`/`dog` of
-// H_out x W_out planes; the caller sets prev and the frame strides.
+// The Band of a launch of S slices over `in` [B, H_in, W_in] (with `up`,
+// its 2x upsample) into `gauss`/`dog`; the caller sets prev and the frame
+// strides. Returns the shared-memory bytes a block takes in *bytes.
 int make_band(const long long* t, const void* in, int H_in, int W_in, int S,
-              int H_out, int W_out, float* gauss, float* dog, Band* a) {
-  if (t[kGeomRows] != kTileRows || t[kGeomCols] != kTileCols ||
-      t[kGeomBlock] != kBlock || S < 1)
+              int up, float* gauss, float* dog, Band* a, long long* bytes) {
+  if (S < 1 || t[kSlices] != S || t[kTapsPerSlice] < 1 || t[kMaxRadius] < 0 ||
+      t[kTapsPerSlice] < 2 * t[kMaxRadius] + 1 || H_in < 1 || W_in < 1)
     return (int)cudaErrorInvalidValue;
   a->in = in;
   a->in_frame = (long long)H_in * W_in;
   a->h_in = H_in;
   a->w_in = W_in;
+  a->up = up != 0;
   a->S = S;
-  a->h_out = H_out;
-  a->w_out = W_out;
-  a->x = pass_of(t + kXPass);
-  a->y = pass_of(t + kYPass);
+  a->h_out = up ? 2 * H_in : H_in;
+  a->w_out = up ? 2 * W_in : W_in;
+  a->t = Taps{(const float*)t[kTapsPtr], (const int*)t[kRadiusPtr],
+              (int)t[kTapsPerSlice]};
   a->prev = nullptr;
   a->prev_frame = 0;
   a->copy_prev = 0;
@@ -411,9 +408,8 @@ int make_band(const long long* t, const void* in, int H_in, int W_in, int S,
   a->g_off = 0;
   a->dog = dog;
   a->d_frame = 0;
-  a->rows_in = (int)t[kRowsIn];
-  a->cols_in = (int)t[kColsIn];
-  a->rows_x = (int)t[kRowsX];
+  *bytes = band_smem_floats(S, (int)t[kTapsPerSlice], (int)t[kMaxRadius]) *
+           (long long)sizeof(float);
   return 0;
 }
 
@@ -421,22 +417,24 @@ int make_band(const long long* t, const void* in, int H_in, int W_in, int S,
 
 // One launch of the tiled band kernel: in [B, H_in, W_in] (fp32, or bf16
 // with in_bf16) -> gauss [B, S (+1 with `first`), H_out, W_out] and, when
-// `dog` is given, the DoG of consecutive slices. `first` [B, H_out, W_out]
-// (bf16 with first_bf16) is the one-shot octave's slice 0: copied to
-// gauss[:, 0], and dog[:, 0] = gauss[:, 1] - first. mid_bf16 rounds the X
-// pass to bf16 (the bf16 blur chain; bf16 input and no `first` only).
-// `tables` is the launch's host table (see Table).
-extern "C" int band_tiles(const long long* tables, const void* in, int in_bf16,
-                          int B, int H_in, int W_in, int S, int H_out,
-                          int W_out, const void* first, int first_bf16,
-                          float* gauss, float* dog, int mid_bf16,
-                          cudaStream_t stream) {
+// `dog` is given, the DoG of consecutive slices; H_out, W_out are H_in,
+// W_in, or twice them with `up` (the passes then blur the input's 2x
+// bilinear upsample). `first` [B, H_out, W_out] (bf16 with first_bf16) is
+// the one-shot octave's slice 0: copied to gauss[:, 0], and dog[:, 0] =
+// gauss[:, 1] - first. mid_bf16 rounds the X pass to bf16 (the bf16 blur
+// chain; bf16 input, no `first` and no `up` only). `table` is the launch's
+// host table (see Table).
+extern "C" int band_tiles(const long long* table, const void* in, int in_bf16,
+                          int B, int H_in, int W_in, int S, int up,
+                          const void* first, int first_bf16, float* gauss,
+                          float* dog, int mid_bf16, cudaStream_t stream) {
   Band a;
-  int err = make_band(tables, in, H_in, W_in, S, H_out, W_out, gauss, dog, &a);
+  long long bytes = 0;
+  int err = make_band(table, in, H_in, W_in, S, up, gauss, dog, &a, &bytes);
   if (err != 0) return err;
-  if (B < 1 || B > 65535 || a.y.n_tiles > 65535)
-    return (int)cudaErrorInvalidValue;
-  const long long plane = (long long)H_out * W_out;
+  const int nx = (a.w_out + kTile - 1) / kTile, ny = (a.h_out + kTile - 1) / kTile;
+  if (B < 1 || B > 65535 || ny > 65535) return (int)cudaErrorInvalidValue;
+  const long long plane = (long long)a.h_out * a.w_out;
   const int g = S + (first ? 1 : 0);
   a.prev = first;
   a.prev_frame = plane;
@@ -444,39 +442,38 @@ extern "C" int band_tiles(const long long* tables, const void* in, int in_bf16,
   a.g_off = first ? 1 : 0;
   a.g_frame = g * plane;
   a.d_frame = (g - 1) * plane;
-  const long long bytes = band_smem_floats(a) * (long long)sizeof(float);
   const void* kernel;
   if (!in_bf16 && !first_bf16 && !mid_bf16)
     kernel = (const void*)band_tiles_kernel<float, float, false>;
   else if (in_bf16 && (!first || first_bf16) && !mid_bf16)
     kernel = (const void*)band_tiles_kernel<bf16, bf16, false>;
-  else if (in_bf16 && !first && mid_bf16)
+  else if (in_bf16 && !first && !up && mid_bf16)
     kernel = (const void*)band_tiles_kernel<bf16, bf16, true>;
   else
     return (int)cudaErrorInvalidValue;
   if ((err = device_facts::allow_shared(kernel, bytes)) != 0) return err;
   void* args[] = {&a};
-  return (int)cudaLaunchKernel(kernel, dim3(a.x.n_tiles, a.y.n_tiles, B),
-                               dim3(kThreads), args, (size_t)bytes, stream);
+  return (int)cudaLaunchKernel(kernel, dim3(nx, ny, B), dim3(kThreads), args,
+                               (size_t)bytes, stream);
 }
 
 // The incremental cascade of one octave in one cooperative launch: first
 // [B, H, W] (fp32, or bf16 with first_bf16) -> gauss [B, n_stage + 1, H, W]
 // (gauss[:, 0] = first) and dog [B, n_stage, H, W]; stage s applies slice
-// s of the tables to gauss[:, s]. bf16_chain: every stage reads its input
+// s of the table to gauss[:, s]. bf16_chain: every stage reads its input
 // rounded to bf16 and rounds its X pass to bf16 (the fast preset's chain).
-extern "C" int blur_cascade(const long long* tables, const void* first,
+extern "C" int blur_cascade(const long long* table, const void* first,
                             int first_bf16, int bf16_chain, int B, int H,
                             int W, int n_stage, float* gauss, float* dog,
                             cudaStream_t stream) {
   Band a;
-  int err = make_band(tables, first, H, W, n_stage, H, W, gauss, dog, &a);
+  long long bytes = 0;
+  int err = make_band(table, first, H, W, n_stage, 0, gauss, dog, &a, &bytes);
   if (err != 0) return err;
   if (B < 1 || (first_bf16 && !bf16_chain)) return (int)cudaErrorInvalidValue;
   const long long plane = (long long)H * W;
   a.g_frame = (n_stage + 1) * plane;
   a.d_frame = n_stage * plane;
-  const long long bytes = band_smem_floats(a) * (long long)sizeof(float);
   const void* kernel =
       first_bf16 ? (const void*)blur_cascade_kernel<bf16, true>
       : bf16_chain ? (const void*)blur_cascade_kernel<float, true>
@@ -484,7 +481,8 @@ extern "C" int blur_cascade(const long long* tables, const void* first,
   int grid = 0;
   if ((err = device_facts::resident_grid(kernel, kThreads, bytes, &grid)) != 0)
     return err;
-  const long long tiles = (long long)a.x.n_tiles * a.y.n_tiles * B;
+  const long long tiles = (long long)((W + kTile - 1) / kTile) *
+                          ((H + kTile - 1) / kTile) * B;
   if (tiles < grid) grid = (int)tiles;
   void* args[] = {&a, &B};
   return (int)cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads),

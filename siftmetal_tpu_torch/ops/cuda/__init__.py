@@ -43,10 +43,10 @@ EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"detect": ("-fmad=false",)}
 # C signatures: library -> {function: argtypes}; every function returns int.
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "pyramid": {
-        # tables (the launch's int64 host table), in, in_bf16, B, H_in, W_in,
-        # S, H_out, W_out, first, first_bf16, gauss, dog, mid_bf16, stream
-        "band_tiles": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P],
-        # tables, first, first_bf16, bf16_chain, B, H, W, n_stage, gauss,
+        # table (the launch's int64 host table), in, in_bf16, B, H_in, W_in,
+        # S, upsample, first, first_bf16, gauss, dog, mid_bf16, stream
+        "band_tiles": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P],
+        # table, first, first_bf16, bf16_chain, B, H, W, n_stage, gauss,
         # dog, stream
         "blur_cascade": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     },

@@ -1,20 +1,22 @@
-"""Gaussian taps, the fp32 shift-add blur, and banded pass tables.
+"""Gaussian taps, the fp32 shift-add blur, and the pass matrices of the
+routing gates.
 
 Port of ``siftmetal_tpu/ops/gaussian.py``. Every 1-D Gaussian pass of the
-pyramid is a linear map ``out[i] = sum_j T[i, j] x[j]`` whose matrix ``T``
-is banded: the half-sample-symmetric boundary folds the reflected taps
-into the edge columns (:func:`band_matrix`), and the seed stage composes
-the 2x bilinear upsample into the same matrix
-(:func:`upsample_blur_matrix`). :func:`band_table` turns any such
-``[n_out, n_in]`` matrix into the compact form the CUDA band kernel reads:
-a start column per output and ``K`` contiguous taps from there.
+port is :func:`conv1d_sym`: the unfolded taps, tap 0 first, applied to the
+input read through the half-sample reflection, so every output of a pass
+runs the same fp32 sum and a constant input stays constant.
+:func:`band_matrix` (the same pass as a dense matrix, reflected taps
+folded into the edge columns) and :func:`upsample_blur_matrix` (the seed's
+2x upsample composed in) are what the JAX package's TPU route computes;
+the port keeps them only for the routing gates
+(``ops/kernels/pyramid.py``), which must accept what the JAX package
+accepts.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Tuple
 
 import numpy as np
 import torch
@@ -29,9 +31,12 @@ def gaussian_taps(sigma: float) -> np.ndarray:
     return w.astype(np.float32)
 
 
-def _conv1d_sym(image: torch.Tensor, taps: np.ndarray, dim: int) -> torch.Tensor:
+def conv1d_sym(image: torch.Tensor, taps: np.ndarray, dim: int) -> torch.Tensor:
     """1-D convolution along ``dim`` (-1 or -2) with half-sample symmetric
-    padding, as a shift-and-add over the taps (exact fp32)."""
+    padding (the period-2n triangle map, which also covers a radius above
+    the length), as a shift-and-add over the taps: output i is
+    ``sum_k taps[k] * x[reflect(i - r + k)]`` in fp32, tap 0 first, every
+    product and sum rounded on its own."""
     radius = len(taps) // 2
     n = image.shape[dim]
     idx = torch.arange(-radius, n + radius, device=image.device)
@@ -51,7 +56,7 @@ def blur(image: torch.Tensor, sigma: float) -> torch.Tensor:
     if sigma <= 0.0:
         return image
     taps = gaussian_taps(sigma)
-    return _conv1d_sym(_conv1d_sym(image, taps, -1), taps, -2)
+    return conv1d_sym(conv1d_sym(image, taps, -1), taps, -2)
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,24 +93,3 @@ def upsample_blur_matrix(sigma: float, n: int) -> np.ndarray:
         u[2 * i + 1, min(i + 1, n - 1)] += 0.5
     t = band_matrix(sigma, 2 * n).astype(np.float32).astype(np.float64)
     return t @ u
-
-
-def band_table(mat: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """[n_out, n_in] banded matrix -> (start int32 [n_out], taps float32
-    [n_out, K]) with ``out[i] = sum_k taps[i, k] * x[start[i] + k]``.
-
-    K is the widest row support; each start is pulled left where needed
-    so that ``start + K <= n_in`` (a band that spans the whole input, as
-    on tiny octaves, starts at 0). Built in float64, rounded once."""
-    mat = np.asarray(mat, np.float64)
-    n_out, n_in = mat.shape
-    nz = mat != 0.0
-    has = nz.any(axis=1)
-    first = np.where(has, nz.argmax(axis=1), 0)
-    last = np.where(has, n_in - 1 - nz[:, ::-1].argmax(axis=1), 0)
-    k = int(max(1, (last - first + 1).max()))
-    start = np.minimum(first, n_in - k)
-    cols = start[:, None] + np.arange(k)[None, :]
-    taps = np.take_along_axis(mat, cols, axis=1)
-    return start.astype(np.int32), taps.astype(np.float32)
-

@@ -23,30 +23,13 @@ octave; one launch each is what moves them.
 
 from __future__ import annotations
 
-import functools
 from typing import Sequence, Tuple
 
 import torch
 
 from .. import cuda as _cuda
-from ..gaussian import band_matrix
 from . import LAUNCHES, require, use_kernel
-from .pyramid import (
-    BandTables,
-    band_x_plain,
-    band_y_plain,
-    launch_tables,
-    pack_tables,
-    separable_bands,
-)
-
-
-@functools.lru_cache(maxsize=None)
-def blur_tables(sigma: float, h: int, w: int) -> Tuple[BandTables, BandTables]:
-    return (
-        pack_tables([band_matrix(float(sigma), w)]),
-        pack_tables([band_matrix(float(sigma), h)]),
-    )
+from .pyramid import bands_plain, launch_table, separable_bands
 
 
 def blur_stack(stack: torch.Tensor, sigma: float) -> torch.Tensor:
@@ -57,23 +40,10 @@ def blur_stack(stack: torch.Tensor, sigma: float) -> torch.Tensor:
     flat = stack.reshape((-1, h, w))
     if use_kernel(flat, "blur_stack"):
         flat = flat.contiguous()
-    tx, ty = blur_tables(float(sigma), h, w)
     gauss, _ = separable_bands(
-        flat, ("blur", float(sigma), h, w), tx, ty, None, False, "blur_stack",
-        mid_dtype=stack.dtype,
+        flat, (float(sigma),), None, False, "blur_stack", mid_dtype=stack.dtype
     )
     return gauss[:, 0].reshape(lead + (h, w))
-
-
-@functools.lru_cache(maxsize=None)
-def cascade_tables(sigmas: Tuple[float, ...], h: int, w: int) -> Tuple[BandTables, BandTables]:
-    """Stage s of the cascade is slice s: the tables of ``blur_tables``
-    of each sigma, packed (each slice keeps its own starts, taps and tap
-    count, so a stage sums exactly as its one-slice blur does)."""
-    return (
-        pack_tables([band_matrix(float(r), w) for r in sigmas]),
-        pack_tables([band_matrix(float(r), h) for r in sigmas]),
-    )
 
 
 def blur_cascade_plain(
@@ -83,12 +53,10 @@ def blur_cascade_plain(
     bf16 in the bf16 chain) blurred by ``sigmas[s]`` through the plain band
     passes, then the stack and the DoG of consecutive slices."""
     mid = torch.bfloat16 if bf16_chain else torch.float32
-    h, w = first.shape[-2:]
     slices = [first.float()]
     chain = first.to(mid)
     for rho in sigmas:
-        tx, ty = blur_tables(float(rho), h, w)
-        out = band_y_plain(band_x_plain(chain, tx, mid), ty, None, False)[0][:, 0]
+        out = bands_plain(chain, (float(rho),), None, False, mid)[0][:, 0]
         chain = out.to(mid)
         slices.append(out)
     stack = torch.stack(slices, dim=1)
@@ -115,16 +83,15 @@ def blur_cascade(
     if first.ndim != 3 or not sigmas:
         raise ValueError(f"{name}: expected [B, H, W] and stages, got {tuple(first.shape)}")
     b, h, w = first.shape
-    sig = tuple(sigmas)
-    tables = launch_tables(("cascade", sig, h, w), first.device,
-                           lambda: cascade_tables(sig, h, w))
+    sig = tuple(float(r) for r in sigmas)
+    table = launch_table(sig, first.device)
     n = len(sig)
     gauss = torch.empty((b, n + 1, h, w), dtype=torch.float32, device=first.device)
     dog = torch.empty((b, n, h, w), dtype=torch.float32, device=first.device)
     with _cuda.launch_on(first) as stream:
         _cuda.check(
             _cuda.library("pyramid").blur_cascade(
-                tables, first.data_ptr(), int(first.dtype == torch.bfloat16),
+                table, first.data_ptr(), int(first.dtype == torch.bfloat16),
                 int(bf16_chain), b, h, w, n, gauss.data_ptr(), dog.data_ptr(), stream,
             ),
             name,

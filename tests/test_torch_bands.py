@@ -1,7 +1,9 @@
 """The tiled band kernel's host tables and the one-launch small-octave
-cascade of the port, on the CPU: the tap-block tables and tile windows
-against the band tables they come from, the blocks' sum order against the
-plain passes, and the cascade and the pyramid against the JAX package."""
+cascade of the port, on the CPU: the slices' taps and the tiles' windows,
+a tile-by-tile model of the kernel's indexing against the plain passes,
+and the cascade and the pyramid against the JAX package."""
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -13,8 +15,10 @@ from siftmetal_tpu.config import FAST_BF16_CONFIG as JFAST16
 from siftmetal_tpu.config import SiftConfig as JConfig
 from siftmetal_tpu_torch import FAST_BF16_CONFIG
 from siftmetal_tpu_torch.config import SiftConfig
+from siftmetal_tpu_torch.ops import image as PI
+from siftmetal_tpu_torch.ops.gaussian import gaussian_taps
 from siftmetal_tpu_torch.ops.kernels import pyramid as PP
-from siftmetal_tpu_torch.ops.kernels.blur import blur_cascade, blur_cascade_plain, blur_tables
+from siftmetal_tpu_torch.ops.kernels.blur import blur_cascade, blur_cascade_plain
 from siftmetal_tpu_torch.sift.batched import build_pyramid_batch
 from siftmetal_tpu_torch.sift.pyramid import cascade_slices
 
@@ -28,79 +32,103 @@ CFG = SiftConfig()
 JCFG = JConfig()
 
 
-def _tables(kind, h, w):
+def _launch(kind, h, w):
+    """(sigmas, upsample) of one band launch."""
     if kind == "seed0.5":
-        return PP.seed_tables(SiftConfig(delta_min=0.5), h, w)
+        return PP._seed_sigmas(SiftConfig(delta_min=0.5)), True
     if kind == "seed1.0":
-        return PP.seed_tables(SiftConfig(delta_min=1.0), h, w)
+        return PP._seed_sigmas(SiftConfig(delta_min=1.0)), False
     if kind == "oneshot":
-        return PP.oneshot_tables(CFG, h, w)
-    return blur_tables(4.6 if min(h, w) < 20 else 3.0901, h, w)
+        return PP.oneshot_rhos(CFG), False
+    return (4.6 if min(h, w) < 20 else 3.0901,), False
+
+
+TILE = 64                  # csrc/pyramid.cu kTile
+SMEM_BYTES = 232448        # shared memory a block may take on an H100
+
+
+def _reflect(i, n):
+    m = np.mod(i, 2 * n)
+    return np.where(m < n, m, 2 * n - 1 - m)
 
 
 @pytest.mark.parametrize("shape", [(480, 640), (170, 250), (7, 10)])
 @pytest.mark.parametrize("kind", ["seed0.5", "seed1.0", "oneshot", "blur"])
 def test_tile_windows_cover_every_tap(kind, shape):
-    """Every tap of every output lies in its block's reach, which lies in
-    its tile's window inside the input; the block taps are the table's
-    taps, exactly, at the right offsets and zero elsewhere; the arrays are
-    C-ordered as the kernel indexes them."""
-    for tab, tile in zip(_tables(kind, *shape), (PP.TILE_COLS, PP.TILE_ROWS)):
-        tp = PP.tile_pass(tab, tile)
-        for a, dt in ((tp.base, np.int32), (tp.span, np.int32), (tp.win, np.int32),
-                      (tp.taps, np.float32)):
-            assert a.dtype == dt and a.flags["C_CONTIGUOUS"]
-        n_s, n_out = tab.start.shape
-        i = np.arange(n_out)
-        g, p, t = i // PP.TAP_BLOCK, i % PP.TAP_BLOCK, i // tile
-        assert tp.win.shape[1] == -(-n_out // tile)
-        assert (tp.win[..., 0] >= 0).all() and (tp.win[..., 1] <= tab.n_in).all()
-        for s in range(n_s):
-            k = int(tab.ks[s])
-            d = tab.start[s] - tp.base[s, g]
-            assert (d >= 0).all() and (d + k <= tp.span[s, g]).all()
-            assert (tp.base[s, g] >= tp.win[s, t, 0]).all()
-            assert (tp.base[s, g] + tp.span[s, g] <= tp.win[s, t, 1]).all()
-            want = np.zeros((n_out, tp.taps.shape[2]), np.float32)
-            want[i[:, None], d[:, None] + np.arange(k)] = tab.taps[s, :k].T
-            np.testing.assert_array_equal(tp.taps[s, g, :, p], want)
-            # Padded outputs past n_out carry no taps.
-            pad = np.arange(n_out, tp.base.shape[1] * PP.TAP_BLOCK)
-            assert not tp.taps[s, pad // PP.TAP_BLOCK, :, pad % PP.TAP_BLOCK].any()
+    """Every slice's taps are its sigma's unfolded Gaussian taps, tap 0
+    first, zero past 2 r + 1, in the C layout the kernel reads; the launch
+    table carries them with the slice count, the taps a slice and the
+    largest radius; every tile's window (the tile and that radius on each
+    side, in padded coordinates) reads through the reflection inside the
+    input (or its upsample), a radius above the size included; and the
+    block's shared memory (taps, X buffer, window) fits the card."""
+    sigmas, up = _launch(kind, *shape)
+    tab = PP.slice_taps(tuple(sigmas))
+    assert tab.taps.dtype == np.float32 and tab.radius.dtype == np.int32
+    assert tab.taps.flags["C_CONTIGUOUS"] and tab.taps.shape[0] == len(sigmas)
+    for s, sg in enumerate(sigmas):
+        want = gaussian_taps(float(sg))
+        r = int(tab.radius[s])
+        assert len(want) == 2 * r + 1
+        np.testing.assert_array_equal(tab.taps[s, : 2 * r + 1], want)
+        assert not tab.taps[s, 2 * r + 1:].any()
+    table = PP.launch_table(tuple(sigmas), torch.device("cpu"))
+    words = np.ctypeslib.as_array((ctypes.c_int64 * 5).from_address(table))
+    big = int(tab.radius.max())
+    assert list(words[2:]) == [len(sigmas), tab.taps.shape[1], big]
+    h, w = (2 * shape[0], 2 * shape[1]) if up else shape
+    for n_out in (h, w):
+        for t0 in range(0, n_out, TILE):
+            idx = _reflect(np.arange(t0 - big, t0 + TILE + big), n_out)
+            assert idx.min() >= 0 and idx.max() < n_out
+    n = TILE + 2 * big
+    floats = (len(sigmas) * tab.taps.shape[1] + 3) // 4 * 4 + n * (TILE + 1) + n * (n | 1)
+    assert 4 * floats <= SMEM_BYTES // 2, "two blocks an SM"
 
 
-def _tiled_pass(x, tab, tile):
-    """The kernel's per-block sums on [B, R, n_in] rows, in PyTorch: acc of
-    each output over m in order, every product and sum rounded on its own
-    (the plain passes' arithmetic)."""
-    tp = PP.tile_pass(tab, tile)
-    n_out, n_in = tab.start.shape[1], tab.n_in
-    outs = []
-    for s in range(tab.start.shape[0]):
-        m = np.arange(tp.taps.shape[2])
-        idx = torch.from_numpy(np.minimum(tp.base[s][:, None] + m, n_in - 1)).long()
-        xs = x[..., idx]                                   # [B, R, nb, kp]
-        taps = torch.from_numpy(tp.taps[s])                # [nb, kp, P]
-        acc = torch.zeros(xs.shape[:-1] + (PP.TAP_BLOCK,))
-        for k in range(taps.shape[1]):
-            acc = acc + taps[:, k, :] * xs[..., k, None]
-        outs.append(acc.reshape(x.shape[:-1] + (-1,))[..., :n_out])
-    return torch.stack(outs, 1)
+def _tile_model(x, sigmas, up):
+    """band_tile's indexing in PyTorch, tile by tile: the tile's window
+    (R, the largest radius, on every side; each sample read through the
+    reflection from the input or its 2x upsample), slice s's X pass at
+    window rows R - r + row and columns R - r + j + k, its Y pass at X
+    rows i + k; every product and sum rounded on its own, tap 0 first."""
+    tab = PP.slice_taps(tuple(sigmas))
+    src = PI.upsample_bilinear_2x(x.float()) if up else x.float()
+    b, h, w = src.shape
+    big = int(tab.radius.max())
+    n = TILE + 2 * big
+    out = torch.zeros((b, len(sigmas), -(-h // TILE) * TILE, -(-w // TILE) * TILE))
+    for i0 in range(0, h, TILE):
+        for j0 in range(0, w, TILE):
+            rows = torch.from_numpy(_reflect(np.arange(i0 - big, i0 - big + n), h))
+            cols = torch.from_numpy(_reflect(np.arange(j0 - big, j0 - big + n), w))
+            win = src.index_select(1, rows).index_select(2, cols)
+            for s in range(len(sigmas)):
+                r = int(tab.radius[s])
+                t = tab.taps[s]
+                xb = None
+                for k in range(2 * r + 1):
+                    term = float(t[k]) * win[:, big - r:big + TILE + r, big - r + k:big - r + k + TILE]
+                    xb = term if xb is None else xb + term
+                y = None
+                for k in range(2 * r + 1):
+                    term = float(t[k]) * xb[:, k:k + TILE]
+                    y = term if y is None else y + term
+                out[:, s, i0:i0 + TILE, j0:j0 + TILE] = y
+    return out[:, :, :h, :w]
 
 
 @pytest.mark.parametrize("kind,shape", [("seed0.5", (45, 70)), ("seed1.0", (170, 250)),
                                         ("oneshot", (60, 80)), ("blur", (7, 10))])
 def test_tap_blocks_sum_in_table_order(kind, shape):
-    """A block's zero taps before and after an output's own leave its sum
-    as the table's, tap 0 first: with separate roundings the block sums
-    equal the plain X pass bit for bit (the kernels' fp32 passes contract
-    the same terms in the same order)."""
+    """The kernel's window offsets, reflection and upsample, tile by tile,
+    give the plain passes bit for bit (with separate roundings; the
+    kernels' fp32 passes contract the same terms in the same order)."""
     rng = np.random.default_rng(21)
-    tab_x, tab_y = _tables(kind, *shape)
+    sigmas, up = _launch(kind, *shape)
     x = torch.from_numpy(rng.uniform(-1, 1, (2,) + shape).astype(np.float32))
-    assert torch.equal(_tiled_pass(x, tab_x, PP.TILE_COLS), PP.band_x_plain(x, tab_x))
-    xt = x.transpose(1, 2).contiguous()
-    assert torch.equal(_tiled_pass(xt, tab_y, PP.TILE_ROWS), PP.band_x_plain(xt, tab_y))
+    got = _tile_model(x, sigmas, up)
+    assert torch.equal(got, PP.bands_plain(x, sigmas, None, False, upsample=up)[0])
 
 
 @pytest.mark.parametrize("shape", [(60, 80), (7, 10)])

@@ -20,7 +20,6 @@ from siftmetal_tpu_torch.ops.kernels.blur import (
     blur_cascade,
     blur_cascade_plain,
     blur_stack,
-    blur_tables,
 )
 from siftmetal_tpu_torch.ops.kernels.cascade import (
     octave_cascade,
@@ -59,8 +58,8 @@ def _t(a, dev):
 
 @pytest.mark.cuda
 def test_pyramid_kernels_match_plain(cuda_dev):
-    """Band kernels vs their plain versions (1e-5: FMA contraction and
-    fp32 sums in another order)."""
+    """Band kernels vs their plain versions (1e-5: the kernels contract
+    each product into its sum, the plain versions round both)."""
     rng = np.random.default_rng(1)
     gray = _t(rng.uniform(0, 1, (2, 170, 250)).astype(np.float32), cuda_dev)
     n0 = LAUNCHES["seed_octave"]
@@ -78,6 +77,31 @@ def test_pyramid_kernels_match_plain(cuda_dev):
     for sigma in (1.2489996, 4.6):
         b = blur_stack(small, sigma)
         assert (b - PG.blur(small, sigma)).abs().max().item() < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("value", [0.5, 1.0, 0.1])
+def test_band_kernels_keep_a_flat_input_flat(cuda_dev, value):
+    """Every output of a slice runs the same FMA chain on the same values,
+    so a flat input gives one value a plane on every band kernel form: the
+    seed at delta_min 0.5 (upsampled in the window) and 1, fp32 and bf16
+    input; the one-shot octave; the blur and the cascade in both chains,
+    on a plane smaller than its radii too."""
+    def one_valued(t):
+        f = t.flatten(-2)
+        return bool((f == f[..., :1]).all())
+
+    frames = torch.full((2, 200, 300), value, device=cuda_dev)
+    for cfg in (CFG, SiftConfig(delta_min=1.0)):
+        for x in (frames, frames.to(torch.bfloat16)):
+            assert all(one_valued(t) for t in PP.seed_octave(x, cfg))
+    first = frames[:, :180].contiguous()
+    for x in (first, first.to(torch.bfloat16)):
+        assert all(one_valued(t) for t in PP.octave_oneshot(x, CFG))
+    for x in (first, first[:, :7, :10].contiguous()):
+        for bf16 in (False, True):
+            assert one_valued(blur_stack(x.to(torch.bfloat16) if bf16 else x, 4.6))
+            assert all(one_valued(t) for t in blur_cascade(x, CFG.incremental_sigmas(3), bf16))
 
 
 @pytest.mark.cuda
@@ -413,10 +437,10 @@ def test_bf16_band_kernels_match_plain(cuda_dev):
     assert (d1 - d1r).abs().max().item() < 1e-5
     for img in (first, first[:, :7, :10].contiguous()):
         for sigma in (0.6131, 1.5453):
-            tx, ty = blur_tables(float(sigma), *img.shape[-2:])
-            xs_plain = PP.band_x_plain(img, tx, torch.bfloat16)
+            tab = PP.slice_taps((float(sigma),))
+            xs_plain = PP.band_x_plain(img, tab, torch.bfloat16)
             out = blur_stack(img, sigma)
-            ref = PP.band_y_plain(xs_plain, ty, None, False)[0][:, 0]
+            ref = PP.band_y_plain(xs_plain, tab, None, False)[0][:, 0]
             assert out.dtype == torch.float32
             assert (out - ref).abs().max().item() < 1e-5
     assert torch.equal(blur_stack(first, 0.6131), blur_stack(first, 0.6131))

@@ -75,7 +75,7 @@ def test_bf16_blur_rounding_points():
     """X pass: fp32 sum rounded once to bf16; Y pass: reads that bf16,
     returns fp32 un-rounded; taps stay fp32 (the reference's CPU path)."""
     from siftmetal_tpu.ops import gaussian as JG
-    from siftmetal_tpu_torch.ops.kernels.blur import blur_stack, blur_tables
+    from siftmetal_tpu_torch.ops.kernels.blur import blur_stack
 
     rng = np.random.default_rng(8)
     img = _bf16_round(rng.uniform(0, 1, (1, 40, 56)).astype(np.float32))
@@ -85,8 +85,8 @@ def test_bf16_blur_rounding_points():
     got = blur_stack(x16, sigma)
     assert got.dtype == torch.float32 and ref.dtype == np.float32
     _assert_bf16_close(got.numpy(), ref, "blur")
-    tx, ty = blur_tables(sigma, 40, 56)
-    mid = PP.band_x_plain(x16, tx, torch.bfloat16)
+    tab = PP.slice_taps((sigma,))
+    mid = PP.band_x_plain(x16, tab, torch.bfloat16)
     assert mid.dtype == torch.bfloat16
     jmid = np.asarray(JG._conv1d_sym(jnp.asarray(img).astype(jnp.bfloat16),
                                      JG.gaussian_taps(sigma), axis=-1).astype(jnp.float32))
@@ -94,7 +94,7 @@ def test_bf16_blur_rounding_points():
     assert flips.mean() <= FLIP_SHARE
     assert np.abs(mid[:, 0].float().numpy() - jmid).max() <= BF16_ULP
     np.testing.assert_array_equal(
-        got.numpy(), PP.band_y_plain(mid, ty, None, False)[0][:, 0].numpy()
+        got.numpy(), PP.band_y_plain(mid, tab, None, False)[0][:, 0].numpy()
     )
 
 
@@ -159,11 +159,14 @@ def test_bf16_seed_matches_pallas():
 
 def test_band_passes_refuse_other_forms():
     x = torch.zeros((1, 8, 8))
-    tx, ty = PP.oneshot_tables(FAST_BF16_CONFIG, 8, 8)
+    rhos = PP.oneshot_rhos(FAST_BF16_CONFIG)
     with pytest.raises(ValueError, match="form"):
-        PP.separable_bands(x, "k", tx, ty, None, False, "blur_stack", mid_dtype=torch.bfloat16)
+        PP.separable_bands(x, rhos, None, False, "blur_stack", mid_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="form"):
+        PP.separable_bands(x.to(torch.bfloat16), rhos, None, False, "blur_stack",
+                           mid_dtype=torch.bfloat16, upsample=True)
     with pytest.raises(TypeError):
-        PP.separable_bands(x.double(), "k", tx, ty, None, False, "blur_stack")
+        PP.separable_bands(x.double(), rhos, None, False, "blur_stack")
     with pytest.raises(ValueError, match="pyramid_dtype"):
         import dataclasses
 

@@ -154,7 +154,7 @@ def test_sharded_extraction_matches_jax_batch_extractor(ranks, jax_batch):
     step for 99% of the entries; positions and scales to 1e-4 plus 32
     fp32 ulps (4e-6 relative). The ulp term is there because the two
     packages' one-frame extracts of these crops already differ by up to
-    2.44e-4 px (crop 2, octave 1, column 112.44; 32 ulps), where the
+    1.83e-4 px (crop 2, octave 1, column 112.44; 24 ulps), where the
     64x96 crop of tests/test_torch_extract.py stays within 1e-4: pyramid
     rounding amplified by an ill-conditioned Taylor step, as
     test_largest_gap_to_jax_is_pyramid_rounding shows."""
@@ -204,7 +204,7 @@ def _taylor64(n):
 
 def test_largest_gap_to_jax_is_pyramid_rounding(inputs, jax_batch):
     """Where the port's and the JAX package's one-frame extracts of the
-    crops lie furthest apart (crop 2: 2.44e-4 px at column 112.44; the
+    crops lie furthest apart (crop 2: 1.83e-4 px at column 112.44; the
     JAX keypoints from its batch extractor, whose frames equal its
     one-frame extracts, tests/test_parallel.py), each
     package's keypoint is the float64 Taylor solve on its own DoG to 1e-5

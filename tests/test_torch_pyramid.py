@@ -13,6 +13,7 @@ from siftmetal_tpu.ops import gaussian as JG
 from siftmetal_tpu.ops.pallas import pyramid as JP
 from siftmetal_tpu_torch.config import SiftConfig
 from siftmetal_tpu_torch.ops import gaussian as PG
+from siftmetal_tpu_torch.ops import image as PI
 from siftmetal_tpu_torch.ops.kernels import pyramid as PP
 from siftmetal_tpu_torch.ops.kernels.blur import blur_stack
 
@@ -25,13 +26,15 @@ JCFG = JConfig()
 RHOS = PP.oneshot_rhos(CFG)
 
 
-def _dense(mat):
-    """Expand a band table back into a dense fp32 [n_out, n_in] matrix."""
-    start, taps = PG.band_table(mat)
-    out = np.zeros(mat.shape, np.float32)
-    for i in range(mat.shape[0]):
-        out[i, start[i]:start[i] + taps.shape[1]] = taps[i]
-    return out
+def _pass_matrix(sigma, n, upsample=False):
+    """The dense fp32 matrix [n_out, n] of the port's 1-D pass (with
+    ``upsample``, of the seed's: the 2x upsample, then the pass at 2n),
+    read off the plain version applied to the identity."""
+    eye = torch.eye(n)
+    if upsample:
+        eye = PI.upsample_bilinear_2x(eye[None])[0, ::2]   # even rows: the columns' upsample
+    tab = PP.slice_taps((float(sigma),))
+    return PP.band_x_plain(eye[None], tab)[0, 0].numpy().T
 
 
 def test_image_ops_match_jax():
@@ -63,24 +66,30 @@ def test_image_ops_match_jax():
                                      (RHOS[-1], 15), (1.2489996, 64),
                                      (4.97, 20)])
 def test_band_table_rebuilds_band_matrix(sigma, n):
-    """Tables rebuild the JAX band matrix, including radius > n."""
-    got = _dense(PG.band_matrix(float(sigma), n))
-    np.testing.assert_allclose(got, JG._band_matrix(float(sigma), n), atol=1e-7, rtol=0)
+    """The unfolded pass over the reflected input is the JAX band matrix
+    (reflected taps folded into the edge columns), including radius > n;
+    so is the port's own band_matrix, which the routing gates read."""
+    ref = JG._band_matrix(float(sigma), n)
+    np.testing.assert_allclose(_pass_matrix(sigma, n), ref, atol=1e-7, rtol=0)
+    np.testing.assert_allclose(PG.band_matrix(float(sigma), n), ref, atol=1e-7, rtol=0)
 
 
 @pytest.mark.parametrize("sigma,n", [(1.2489996, 170), (4.9749, 250), (3.0, 21)])
 def test_band_table_rebuilds_upsample_blur_matrix(sigma, n):
-    got = _dense(PG.upsample_blur_matrix(float(sigma), n))
+    """Upsample, then the unfolded pass at 2n: the JAX package's composed
+    seed matrix; and the port's upsample_blur_matrix (the gate's) is it."""
+    ref = JG._upsample_blur_matrix(float(sigma), n)
+    np.testing.assert_allclose(_pass_matrix(sigma, n, True), ref, atol=1e-7, rtol=0)
     np.testing.assert_allclose(
-        got, JG._upsample_blur_matrix(float(sigma), n), atol=1e-7, rtol=0
+        PG.upsample_blur_matrix(float(sigma), n), ref, atol=1e-7, rtol=0
     )
 
 
 @pytest.mark.parametrize("h", [176, 200, 480])
 def test_band_table_rebuilds_y_band_matrices(h):
-    """The TPU kernel's per-band Y blocks are windows of the same table."""
+    """The TPU kernel's per-band Y blocks are windows of the same pass."""
     for rho in RHOS:
-        dense = _dense(PG.band_matrix(float(rho), h))
+        dense = _pass_matrix(rho, h)
         ref = JP._y_band_matrices(float(rho), h)
         n_bands = ref.shape[0]
         hp = PP.BAND * n_bands
