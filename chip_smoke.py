@@ -27,10 +27,17 @@ Phases, in order; any failure exits non-zero and prints no result:
     form; every pyramid kernel also beside a cuDNN yardstick of the same
     function, its library_ms);
  3. main path: SIFT(480, 640).extract_batch on 8 seeded noise frames (as
-    bench.py makes them), with every launch counter set to 0 just before
-    and read just after (pyramid, detection and orientation launches
-    checked exactly);
-    frames/s from CUDA events;
+    bench.py makes them): its first call captures a CUDA graph (time and
+    device memory printed), then a replay with every launch counter set to
+    0 just before and read just after; a replay runs no wrapper, so its
+    launches are counted on the device, by kernel name, in a profile of
+    that call, and held group by group against an eager
+    extract_gray_batch's counters (pyramid, detection and orientation
+    launches checked exactly); the replay against the eager call bit for
+    bit in every field, and again after a second replay on other frames
+    (as in every phase that drives a configuration); the replay and the
+    eager call timed in turns (CUDA events, frames/s) and each profiled
+    once (idle share);
  4. fast path: SIFT(480, 640, config=FAST_BF16_CONFIG).extract_batch on
     the same frames and match_bruteforce over the 4 frame pairs, counters
     set to 0 just before and read just after; then a 4096 x 131072 map
@@ -50,8 +57,9 @@ Phases, in order; any failure exits non-zero and prints no result:
  6. sfm: bundle_adjust at 256 cameras / 65,536 landmarks / 196,608
     observations (tests/test_slam.py's mapping-size gates, ms per call,
     peak memory, device busy and idle share); examples/video_sfm_torch.py's
-    scene at 480x640 rendered on the card, extracted with the launch
-    counters set to 0 just before and read just after, then SfmMap at its
+    scene at 480x640 rendered on the CPU (the same bits every run),
+    extracted on the card with the launch counters set to 0 just before
+    and read just after, then SfmMap at its
     full budgets (every frame registered, RMS < 1 px, ATE < 0.1; ms per
     add_frame and of the global BA); the 52-keyframe loop-closure scene of
     tests/test_sfm.py (every frame registered and its three bars on one
@@ -1259,22 +1267,59 @@ def _noise_frames(device):
 
 def _drive(tag, sift, x, required, reports, after=None, may_overflow=False):
     """One extract_batch (and ``after(descs)``, the rest of the path) with
-    every launch counter set to 0 just before and read just after. Fails
-    if a kernel in ``required`` was not launched, an output is malformed
-    or (unless ``may_overflow``: then they are only shown) a budget
-    overflowed. Returns (keypoints, descriptors, counters as
-    per-frame lists, launches)."""
+    every launch counter set to 0 just before and read just after. The
+    call replays the graph that the first call captured, which runs no
+    wrapper: its launches are counted on the device, by kernel name, in a
+    profile of that call and of two more replays (a profile loses a
+    kernel event now and then, about one call in 60 on the H100: each
+    group's count is the largest of the three), and held group by group
+    against the counters of an eager ``extract_gray_batch`` on the same
+    frames (plus any wrapper that ``after`` runs). Fails if a kernel in
+    ``required`` was not launched, the replay's launches differ from the
+    eager call's, an output is malformed or (unless ``may_overflow``:
+    then they are only shown) a budget overflowed. Returns (keypoints,
+    descriptors, counters as per-frame lists, launches, what ``after``
+    returned)."""
     import torch
 
-    from siftmetal_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from siftmetal_tpu_torch import extract_gray_batch
+    from siftmetal_tpu_torch.ops.kernels import (
+        KERNEL_GROUPS, LAUNCHES, device_launches, group_launches, reset_launches)
 
-    sift.extract_batch(x)                    # warm-up: tables, allocator
+    sift.extract_batch(x)                    # the first call: warm-up, capture
     torch.cuda.synchronize()
     reset_launches()
-    kps, descs, counters = sift.extract_batch(x)
-    extra = after(descs) if after is not None else None
+    eager = extract_gray_batch(x, sift.config, sift.n_octaves)
     torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+    eager_launches = dict(LAUNCHES)
+    out = {}
+
+    def run():
+        out["result"] = sift.extract_batch(x)
+        out["extra"] = after(out["result"][1]) if after is not None else None
+
+    reset_launches()
+    _, _, kern, *_ = _device_profile(run)
+    host = dict(LAUNCHES)                    # wrappers that ``after`` ran
+    kps, descs, counters = out["result"]
+    extra = out["extra"]
+    profiles = [device_launches(e.name for e in kern)]
+    for _ in range(2):
+        profiles.append(device_launches(e.name for e in _device_profile(lambda: sift.extract_batch(x))[2]))
+    seen = {g: max(p[g] for p in profiles) for g in profiles[0]}
+    want = group_launches({k: eager_launches[k] + host[k] for k in LAUNCHES})
+    bad = {"+".join(g): (seen[g], want[g]) for g in KERNEL_GROUPS.values() if seen[g] != want[g]}
+    _require(not bad, f"{tag}: device launches of the replayed call differ from the eager call's "
+                      f"(kernel group: (replay, eager)) {bad}")
+    short = [i for i, p in enumerate(profiles) if p != seen]
+    if short:
+        print(f"[{tag}] profiles {short} of the three lost a kernel event: "
+              f"{[{'+'.join(g): n for g, n in profiles[i].items() if n != seen[g]} for i in short]}",
+              flush=True)
+    # Each group's count is the replay's; a group of several wrappers (the
+    # band kernels: seed, one-shot, single slice) is split as the eager
+    # call's wrappers counted it.
+    launches = {k: eager_launches[k] + host[k] for k in LAUNCHES}
     missing = [k for k in required if launches[k] == 0]
     if missing:
         raise AssertionError(f"{tag}: path never launched {missing}; launches {launches}")
@@ -1290,7 +1335,10 @@ def _drive(tag, sift, x, required, reports, after=None, may_overflow=False):
     for t in (kps.x, kps.y, kps.sigma, descs.x, descs.y, descs.sigma, descs.theta):
         _require(bool(torch.isfinite(t).all()), f"{tag}: non-finite keypoint or descriptor values")
     ctr = {k: [int(v) for v in t.cpu()] for k, t in counters.items()}
-    print(f"[{tag}] launches {json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+    print(f"[{tag}] launches of the replayed call, counted on the device "
+          f"{json.dumps({'+'.join(g): n for g, n in seen.items() if n})}; by wrapper "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}; wrapper calls in it "
+          f"{sum(host.values())}", flush=True)
     print(f"[{tag}] counters (sum over {bsz} frames): "
           f"{json.dumps({k: sum(v) for k, v in ctr.items()})}; overflow counters "
           f"{json.dumps({k: ctr[k] for k in OVERFLOWS})}", flush=True)
@@ -1299,7 +1347,47 @@ def _drive(tag, sift, x, required, reports, after=None, may_overflow=False):
             raise AssertionError(f"{tag}: overflow {key}={ctr[key]}")
     if min(ctr["n_descriptors"]) <= 0:
         raise AssertionError(f"{tag}: no descriptors")
+    _hold_replay(tag, sift, x, (kps, descs, counters), eager)
     return kps, descs, ctr, launches, extra
+
+
+def _same_bits(a, b) -> bool:
+    """Equal dtype, shape and bytes."""
+    import torch
+
+    flat = lambda t: t.contiguous().reshape(-1).view(torch.uint8)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(flat(a), flat(b))
+
+
+def _differing(got, want):
+    """Fields of two (Keypoints, Descriptors, counters) results whose bits
+    differ, and the number of fields."""
+    (kg, dg, cg), (kw, dw, cw) = got, want
+    pairs = [*zip(kg._fields, kg, kw), *zip(dg._fields, dg, dw), *((k, cg.get(k), cw[k]) for k in cw)]
+    return [n for n, a, b in pairs if a is None or not _same_bits(a, b)], len(pairs)
+
+
+def _hold_replay(tag, sift, x, got, want=None):
+    """``sift.extract_batch``'s result ``got`` on ``x`` (a replay of the
+    graph its first call captured) against the eager ``extract_gray_batch``
+    on the same frames (``want``, when already made), bit for bit in every
+    field; then a second replay on other frames against their eager call,
+    and ``got`` unchanged by it."""
+    from siftmetal_tpu_torch import extract_gray_batch
+
+    eager = lambda f: extract_gray_batch(f, sift.config, sift.n_octaves)
+    kept = tuple(type(r)(*(t.clone() for t in r)) for r in got[:2]) + (
+        {k: v.clone() for k, v in got[2].items()},)
+    bad, n = _differing(got, want if want is not None else eager(x))
+    _require(not bad, f"{tag}: the replay differs from the eager call in {bad}")
+    y = x.roll(1, 0).flip(-1).contiguous()
+    bad, _ = _differing(sift.extract_batch(y), eager(y))
+    _require(not bad, f"{tag}: a second replay on other frames differs from the eager call in {bad}")
+    bad, _ = _differing(got, kept)
+    _require(not bad, f"{tag}: the second replay changed the first call's result in {bad}")
+    print(f"[{tag}] replay equal to the eager extract_gray_batch in all {n} fields bit for bit, "
+          f"and again on other frames after a second replay (first result unchanged); "
+          f"graphs captured for batch sizes {sorted(sift._graphs)}", flush=True)
 
 
 def _windows(fn, n_windows, calls):
@@ -1324,11 +1412,28 @@ def _median(v):
 
 
 def phase_main_path(reports, smi_line):
-    """SIFT(480, 640).extract_batch on 8 noise frames through the kernels."""
-    from siftmetal_tpu_torch import SIFT
+    """SIFT(480, 640).extract_batch on 8 noise frames through the kernels:
+    its first call (eager warm-up and capture), the replay's launches and
+    bits against the eager call, then the replay and the eager
+    extract_gray_batch timed in turns and each profiled once."""
+    import torch
+
+    from siftmetal_tpu_torch import SIFT, extract_gray_batch
 
     sift = SIFT(480, 640)
     x = _noise_frames(sift.device)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sift.extract_batch(x)                    # eager warm-up, capture, one replay
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    first_peak = torch.cuda.max_memory_allocated() - held0
+    held = torch.cuda.memory_allocated() - held0
+    torch.cuda.empty_cache()                 # what stays reserved is the graph's
+    reserved = torch.cuda.memory_reserved() - res0
     _, descs, ctr, launches, _ = _drive("main", sift, x, PARITY_KERNELS, reports)
     _require_launches("main", launches, PARITY_PYRAMID)
     _require_launches("main", launches, PARITY_DETECT, "detection")
@@ -1338,15 +1443,40 @@ def phase_main_path(reports, smi_line):
     _require(all(int(c1[k]) == ctr[k][0] for k in c1), "batched != single-frame counters")
     fd = (d1.features[d1.valid].int() - descs.features[0][descs.valid[0]].int()).abs()
     _require(int(fd.max()) <= 1, "batched != single-frame descriptors")
-    # Three windows of 5 calls each: the host runs most of the main path,
-    # and host time on a shared machine spreads more than device time.
-    windows = _windows(lambda: sift.extract_batch(x), 3, 5)
-    ms = _median(windows)
-    _profile("main", lambda: sift.extract_batch(x))
+    eager = lambda: extract_gray_batch(x, sift.config, sift.n_octaves)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eager()
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    sift.extract_batch(x)
+    torch.cuda.synchronize()
+    replay_peak = torch.cuda.max_memory_allocated() - base
+    # In turns, three windows of 5 calls each route: the host runs most of
+    # the eager route, and host time on a shared machine spreads more than
+    # device time.
+    runs = {"replay": lambda: sift.extract_batch(x), "eager": eager}
+    times = {k: [] for k in runs}
+    for _ in range(3):
+        for k, fn in runs.items():
+            times[k] += _windows(fn, 1, 5)
+    idle = {k: _profile(f"main {k}", fn) for k, fn in runs.items()}
+    gib = lambda n: f"{n / 2**30:.3f} GiB"
     print(f"[main] descriptors per frame {ctr['n_descriptors']}", flush=True)
-    print(f"[main] extract_batch 8x480x640: median {ms:.3f} ms/batch, {8e3 / ms:.2f} frames/s "
-          f"(windows of 5 calls: {', '.join(f'{w:.3f}' for w in windows)} ms; {smi_line})",
-          flush=True)
+    for k, v in times.items():
+        ms = _median(v)
+        print(f"[main] {k} 8x480x640: median {ms:.3f} ms/batch, {8e3 / ms:.2f} frames/s (windows of 5 "
+              f"calls, in turns: {', '.join(f'{t:.3f}' for t in v)} ms); one profiled call: wall "
+              f"{idle[k][0]:.3f} ms, device busy {idle[k][1]:.3f} ms, idle "
+              f"{100.0 * (1.0 - idle[k][1] / idle[k][0]):.1f}%; against the median "
+              f"{100.0 * (1.0 - idle[k][1] / ms):.1f}% ({smi_line})", flush=True)
+    print(f"[main] first call (eager warm-up on a side stream, the capture, a replay) {capture_s:.3f} s; "
+          f"device memory: allocated after it {gib(held)} (the graph's outputs and input), "
+          f"reserved after it {gib(reserved)} (the graph's pool with them), first call peak "
+          f"{gib(first_peak)}, a replay's peak {gib(replay_peak)} (its output copies), an eager "
+          f"call's peak {gib(eager_peak)} ({smi_line})", flush=True)
     return ctr
 
 
@@ -1420,7 +1550,8 @@ def phase_fast_path(reports, parity_ctr, smi_line):
     # Times, in turns inside this one run: fast bf16, fast fp32, parity.
     sift32 = SIFT(480, 640, config=FAST_CONFIG)
     parity = SIFT(480, 640)
-    sift32.extract_batch(x)
+    _hold_replay("fast_fp32", sift32, x, sift32.extract_batch(x))
+    parity.extract_batch(x)
     torch.cuda.synchronize()
     runs = {"fast_bf16": lambda: sift.extract_batch(x), "fast_fp32": lambda: sift32.extract_batch(x),
             "parity": lambda: parity.extract_batch(x)}
@@ -1829,7 +1960,7 @@ def _sfm_mapping_ba(dev, smi_line):
 def _sfm_video(reports, dev, smi_line):
     """examples/video_sfm_torch.py's scene at 480x640 (K and the blob
     radii scaled x2) and its camera sweep (a 1.2-unit truck, a 0.06 rad
-    pan) in 8 frames, rendered on the card; SIFT(480, 640, max_descriptors=4096)
+    pan) in 8 frames, rendered on the CPU (the same bits every run); SIFT(480, 640, max_descriptors=4096)
     .extract_batch with the launch counters set to 0 just before and read
     just after; SfmMap(k, SfmConfig()) at its full budgets: initialize,
     add_frame for each frame, one global bundle_adjust. Gates: every frame
@@ -2073,7 +2204,8 @@ def _device_profile(fn):
 def _profile(tag, fn):
     """One call of ``fn`` under torch.profiler: the union of device kernel
     time against the host's wall time (the idle share), each stage's host
-    and device span, and the kernels with the most device time."""
+    and device span (an eager call's: a graph replay records no range),
+    and the kernels with the most device time. Returns (wall ms, busy ms)."""
     wall, busy, kern, events, per, on_dev = _device_profile(fn)
     spans = {}
     for e in events:
@@ -2108,6 +2240,7 @@ def _profile(tag, fn):
     hit = [v for k, v in per.items() if "detect_kernel" in k]
     print(f"[profile {tag}] detection kernel: {sum(ms for ms, _ in hit):.3f} ms "
           f"x{sum(c for _, c in hit)}", flush=True)
+    return wall, busy
 
 
 def _free_port() -> int:

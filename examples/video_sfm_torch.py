@@ -2,7 +2,7 @@
 incremental SfM -> ATE.
 
 The scene and the SfM flow of ``examples/video_sfm.py``: a synthetic
-wall of textured blobs, a camera sweep rendered on the device, SIFT on
+wall of textured blobs, a camera sweep rendered on the CPU, SIFT on
 every frame (``siftmetal_tpu_torch.SIFT``), the incremental ``SfmMap``
 (bootstrap, PnP registration, triangulation, global BA), reprojection
 RMS and the ATE against the ground-truth trajectory. It writes the map
@@ -42,12 +42,17 @@ def textured_scene(rng, n_blobs=2500, width_scale=1.0):
 
 
 def render(cam, k, centers, amps, widths, h, w, device, batch=256):
-    """Splat renderer on ``device``: project the blob centers, then add
-    each blob's Gaussian (cut at 3 radii) to a 0.5 grey plane, ``batch``
-    blobs at a time with one ``index_add_``. Blobs whose center projects
-    more than 20 px outside the frame are skipped."""
+    """Splat renderer: project the blob centers, then add each blob's
+    Gaussian (cut at 3 radii) to a 0.5 grey plane, ``batch`` blobs at a
+    time with one ``index_add_``. Blobs whose center projects more than
+    20 px outside the frame are skipped. The frame is drawn on the CPU,
+    whose ``index_add_`` sums overlapping blobs in one fixed order (a
+    card's atomics add them in any order, and the last bits of a frame,
+    and so the SfM run on it, would change from run to run), then moved
+    to ``device``."""
     from siftmetal_tpu_torch.slam.camera import project
 
+    out_device, device = device, torch.device("cpu")
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     uv = project(f32(cam), f32(k), f32(centers))
     amps_t, r_t = f32(amps), f32(widths)
@@ -69,7 +74,7 @@ def render(cam, k, centers, amps, widths, h, w, device, batch=256):
         )
         idx = torch.where(inside, py[:, :, None] * w + px[:, None, :], 0)
         img.index_add_(0, idx.reshape(-1), torch.where(inside, val, 0.0).reshape(-1))
-    return img.clamp(0.0, 1.0).reshape(h, w)
+    return img.clamp(0.0, 1.0).reshape(h, w).to(out_device)
 
 
 def frames_of(descs, i):

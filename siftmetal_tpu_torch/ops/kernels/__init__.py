@@ -2,15 +2,22 @@
 
 Each wrapper runs its kernel's plain PyTorch version for a tensor on the
 CPU, launches its CUDA kernel for a tensor on a CUDA device (no fallback),
-and raises for any other device. ``LAUNCHES[name]`` counts the CUDA
-launches of wrapper ``name`` (the band wrappers count their bf16-input
-form, and ``blur_cascade`` its bf16 chain, under ``name_bf16``); it moves nowhere else, so a run can show
-that its main path went through the kernels.
+and raises for any other device. ``LAUNCHES[name]`` counts the calls in
+which wrapper ``name`` launches its CUDA kernel (the band wrappers count
+their bf16-input form, and ``blur_cascade`` its bf16 chain, under
+``name_bf16``); it moves nowhere else, so a run can show that its main
+path went through the kernels. Under a CUDA graph capture the wrapper
+records its launch into the graph and counts it; a replay of the graph
+(``sift/extract.py``) runs no wrapper and counts nothing: a profile of
+the replay counts its device kernels by name (``KERNEL_GROUPS``,
+``device_launches``), to hold against an eager call's ``LAUNCHES``
+(``group_launches``).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import re
+from typing import Dict, Iterable, Tuple
 
 import torch
 
@@ -32,6 +39,43 @@ LAUNCHES: Dict[str, int] = {
     "blur_cascade": 0,
     "blur_cascade_bf16": 0,
 }
+
+
+# The device function each group of wrappers launches, as a pattern of the
+# (demangled) kernel name a profiler records; the wrappers of one group
+# launch one function, so a profile counts the group's launches together.
+KERNEL_GROUPS: Dict[str, Tuple[str, ...]] = {
+    r"\bband_tiles_kernel<float\b": ("seed_octave", "octave_oneshot", "blur_stack"),
+    r"\bband_tiles_kernel<(?!float\b)": (
+        "seed_octave_bf16", "octave_oneshot_bf16", "blur_stack_bf16",
+    ),
+    r"\bblur_cascade_kernel<[^<>]*, false>": ("blur_cascade",),
+    r"\bblur_cascade_kernel<[^<>]*, true>": ("blur_cascade_bf16",),
+    r"\bstream_kernel<": ("octave_cascade",),
+    r"\bdetect_kernel<true\b": ("detect_candidates",),
+    r"\bdetect_kernel<false\b": ("detect_candidates_lean",),
+    r"\borientation_kernel\b": ("orientation_hist",),
+    r"\bdescriptor_kernel<": ("descriptor_hist",),
+    r"\borient_desc_kernel<": ("orient_desc",),
+    r"\bresident_orientation_kernel\b": ("orientation_hist_banded",),
+    r"\bresident_descriptor_kernel<": ("descriptor_hist_banded",),
+}
+
+
+def device_launches(kernel_names: Iterable[str]) -> Dict[Tuple[str, ...], int]:
+    """Launches of each wrapper group (``KERNEL_GROUPS``' values) among the
+    device kernels a profiler recorded, given by name."""
+    counts = {group: 0 for group in KERNEL_GROUPS.values()}
+    for name in kernel_names:
+        for pattern, group in KERNEL_GROUPS.items():
+            if re.search(pattern, name):
+                counts[group] += 1
+    return counts
+
+
+def group_launches(launches: Dict[str, int]) -> Dict[Tuple[str, ...], int]:
+    """Wrapper launch counts (as ``LAUNCHES``) summed over each group."""
+    return {group: sum(launches[w] for w in group) for group in KERNEL_GROUPS.values()}
 
 
 def reset_launches() -> None:

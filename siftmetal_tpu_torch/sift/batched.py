@@ -39,8 +39,9 @@ from . import describe as _describe
 from . import detect as _detect
 from .pyramid import is_bf16, seed_image
 
-# Profiler ranges of the stages (read by chip_smoke.py's breakdown; free
-# when no profiler runs).
+# Profiler ranges of the stages (read by chip_smoke.py's breakdown of an
+# eager call: a CUDA graph replay records none; free when no profiler
+# runs).
 _stage = torch.profiler.record_function
 
 

@@ -15,6 +15,7 @@ over frames.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
@@ -109,7 +110,8 @@ def keypoint_budget(config: SiftConfig, shape: Tuple[int, int], octave: int = 0)
 
 
 def mover_budget(config: SiftConfig, shape: Tuple[int, int]) -> int:
-    """Mover lanes of one octave (the first tier of the shared walk)."""
+    """Mover lanes of one octave (the first tier of the JAX package's
+    shared walk; the port walks the whole block at once)."""
     return max(192, extrema_candidate_budget(config, shape) // 24)
 
 
@@ -214,13 +216,35 @@ def _taylor_from_stencil(v: torch.Tensor, edge_threshold: float):
     return oi, oj, os_, val, edge_ok(hii, hjj, hij, edge_threshold)
 
 
-def _stencil_lookup(dog_all, dbase, h, w, edge_threshold: float):
+@functools.lru_cache(maxsize=None)
+def _tail_tables(
+    config: SiftConfig, shapes: Tuple[Tuple[int, int], ...], n_dog: int, device: torch.device
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The tail's constant tables on ``device``, copied from the host once
+    per (config, octave shapes, DoG planes, device): a copy from pageable
+    host memory cannot run inside a CUDA graph capture. Returns (the
+    sigmas of every octave's slices [n_oct * S] f32, each octave's first
+    element in the flat DoG concatenation [n_oct] int64, the 19-point
+    stencil's offsets [19, 3] int64)."""
+    sigmas = [s for o in range(len(shapes)) for s in config.octave_sigmas(o)]
+    bases, off = [], 0
+    for h, w in shapes:
+        bases.append(off)
+        off += n_dog * h * w
+    return (
+        torch.tensor(sigmas, dtype=torch.float32).to(device),
+        torch.tensor(bases, dtype=torch.int64).to(device),
+        torch.tensor(_OFFS19, dtype=torch.int64).to(device),
+    )
+
+
+def _stencil_lookup(dog_all, dbase, h, w, offs, edge_threshold: float):
     """``lookup(s, i, j)`` over lanes [B, K] of the flat DoG concatenation
     ``dog_all`` [B, total]: one 19-point gather with per-lane strides
-    (octave shapes differ), then the Taylor step and edge test there."""
+    (octave shapes differ; ``offs`` the stencil's [19, 3] offsets), then
+    the Taylor step and edge test there."""
     b = dog_all.shape[0]
     hw = h * w
-    offs = torch.tensor(_OFFS19, dtype=torch.int64, device=dog_all.device)
 
     def lookup(s, i, j):
         base = dbase + (s * h + i) * w + j                      # [B, k]
@@ -251,8 +275,10 @@ def _refine_batched(
 ):
     """IPOL refinement walk of every lane at once ([B, K] tensors; ``h``
     and ``w`` per lane). Moves are clamped to the interior; lanes stop
-    when converged. The loop ends early once every lane of every frame is
-    done: that test reads one device value per iteration (a host sync).
+    when converged. The walk always runs ``max_iterations`` iterations,
+    done lanes masked, and reads nothing back to the host: the values of
+    the JAX package's ``lax.while_loop``, which stops once every lane is
+    done.
 
     ``lookup(s, i, j)`` returns (ofst_i, ofst_j, ofst_s, value, edge_ok)
     at the integer positions; the edge flag of a lane's final position
@@ -264,8 +290,7 @@ def _refine_batched(
     conv, edge = falses, falses
     oi = oj = os_ = val = zeros
     done = ~active0
-    it = 0
-    while it < max_iterations and not bool(done.all()):
+    for _ in range(max_iterations):
         noi, noj, nos, nval, nedge = lookup(s, i, j)
         nconv = (noi.abs() < mo) & (noj.abs() < mo) & (nos.abs() < mo)
         di = ((noi > mo) & (i + 1 <= h - 2)).long() - ((noi < -mo) & (i - 1 >= 1)).long()
@@ -283,7 +308,6 @@ def _refine_batched(
         j = torch.where(move, j + dj, j)
         s = torch.where(move, s + ds, s)
         done = done | nconv
-        it += 1
     return s, i, j, conv, oi, oj, os_, val, edge
 
 
@@ -338,10 +362,8 @@ def _tail_all_octaves(
     s_c, i_c, j_c, ok_c = [], [], [], []
     oi_c, oj_c, os_c, val_c, edge_c = [], [], [], [], []
     delta_c, sgo_c, h_c, w_c, oct_c = [], [], [], [], []
-    dog_parts, dbase = [], []
-    sig_rows = []
+    dog_parts = []
     n_ex = n_soft = drops = 0
-    doff = 0
     n_sig = len(config.octave_sigmas(0))
     flat = lambda a: a.reshape(b, -1)
     for o, out in enumerate(outs):
@@ -374,7 +396,6 @@ def _tail_all_octaves(
         j_c.append(j_l)
         ok_c.append(ok_l)
         h, w = shapes[o]
-        sig_rows.append(torch.tensor(config.octave_sigmas(o), dtype=torch.float32))
         full = lambda v, dt: torch.full((m_o,), v, dtype=dt, device=dev)
         delta_c.append(full(config.octave_delta(o), torch.float32))
         sgo_c.append(full(o * n_sig, torch.int64))
@@ -382,8 +403,6 @@ def _tail_all_octaves(
         w_c.append(full(w, torch.int64))
         oct_c.append(full(o, torch.int64))
         dog_parts.append(flat(dogs[o]))
-        dbase.append(doff)
-        doff += dogs[o][0].numel()
         n_ex = n_ex + out.n_raw
         n_soft = n_soft + out.n_soft
         drops = drops + out.n_row_dropped
@@ -391,17 +410,17 @@ def _tail_all_octaves(
     cat = lambda xs: torch.cat(xs, -1)
     s_idx, i_idx, j_idx, ok = cat(s_c), cat(i_c), cat(j_c), cat(ok_c)
     delta_l, sgo_l, h_l, w_l, oct_l = cat(delta_c), cat(sgo_c), cat(h_c), cat(w_c), cat(oct_c)
-    sig_table = cat(sig_rows).to(dev)
+    sig_table, dbase_o, offs = _tail_tables(config, shapes, dogs[0].shape[1], dev)
     n_sc_int = outs[0].cand_col.shape[1]
     dog_all = cat(dog_parts)                                # [B, total]
-    dbase_l = torch.tensor(dbase, dtype=torch.int64, device=dev)[oct_l]
+    dbase_l = dbase_o[oct_l]
     bcast = lambda a: a.expand(b, a.shape[-1])
 
     if lean:
         # Iteration-1 Taylor step + edge test of every compacted candidate:
         # one flat 19-point gather, exactly the mover walk's lookup.
         oi1, oj1, os1, val1, edge1 = _stencil_lookup(
-            dog_all, bcast(dbase_l), bcast(h_l), bcast(w_l), config.edge_threshold
+            dog_all, bcast(dbase_l), bcast(h_l), bcast(w_l), offs, config.edge_threshold
         )(s_idx, i_idx, j_idx)
     else:
         oi1, oj1, os1, val1, edge1 = cat(oi_c), cat(oj_c), cat(os_c), cat(val_c), cat(edge_c)
@@ -450,36 +469,19 @@ def _tail_all_octaves(
     j0_all = torch.where(mv_valid, take(j_idx + dj), 1)
     h_m, w_m, dbase_m = take(h_l), take(w_l), take(dbase_l)
 
-    def walk(lo, hi):
-        """Refinement walk over lanes [lo, hi) of the mover block."""
-        h_s, w_s = h_m[:, lo:hi], w_m[:, lo:hi]
-        lookup = _stencil_lookup(
-            dog_all, dbase_m[:, lo:hi], h_s, w_s, config.edge_threshold
-        )
-        return _refine_batched(
-            lookup, n_sc_int,
-            s0_all[:, lo:hi], i0_all[:, lo:hi], j0_all[:, lo:hi], h_s, w_s,
-            max_iterations=config.max_interpolation_iterations - 1,
-            max_offset=mo,
-            active0=mv_valid[:, lo:hi],
-        )
-
-    # Two-tier walk: tier A (the octave-0 rule's budget) always runs;
-    # tier B (the rest of the block) runs only when some frame has more
-    # movers than tier A holds — a host read of n_mov.
-    k1 = min(k_move, mover_budget(config, shapes[0]))
-    res = walk(0, k1)
-    if k_move > k1:
-        k2 = k_move - k1
-        if bool((n_mov > k1).any()):
-            res_b = walk(k1, k_move)
-        else:
-            zf = torch.zeros((b, k2), dtype=torch.float32, device=dev)
-            zi = torch.ones((b, k2), dtype=torch.int64, device=dev)
-            zb = torch.zeros((b, k2), dtype=torch.bool, device=dev)
-            res_b = (zi, zi, zi, zb, zf, zf, zf, zf, zb)
-        res = tuple(torch.cat([a, c], 1) for a, c in zip(res, res_b))
-    s_m, i_m, j_m, conv_m, oi_m, oj_m, os_m, val_m, edge_m = res
+    # One walk over the whole mover block. The JAX tail walks its first
+    # tier (``mover_budget`` lanes) and, per frame under ``lax.cond``, the
+    # rest only when the frame has more movers; a lane past a frame's
+    # movers starts at s = i = j = 1, done, with zero offsets and false
+    # flags, which is what the skipped branch returns, so one walk gives
+    # the same values with no host read.
+    s_m, i_m, j_m, conv_m, oi_m, oj_m, os_m, val_m, edge_m = _refine_batched(
+        _stencil_lookup(dog_all, dbase_m, h_m, w_m, offs, config.edge_threshold),
+        n_sc_int, s0_all, i0_all, j0_all, h_m, w_m,
+        max_iterations=config.max_interpolation_iterations - 1,
+        max_offset=mo,
+        active0=mv_valid,
+    )
 
     kp_m = accept(
         mv_valid, s_m, i_m, j_m, conv_m & mv_valid, oi_m, oj_m, os_m,

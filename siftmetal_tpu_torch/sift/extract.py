@@ -5,6 +5,19 @@ Port of ``siftmetal_tpu/sift/extract.py``. Shapes are static per
 (height, width, config), so a ``SIFT`` object is built once per
 resolution and reused. It runs on the CUDA card unless the caller asks
 for the CPU; without a card it raises rather than carry on elsewhere.
+
+What ``jax.jit`` does for the JAX facade (one compiled program per shape,
+dispatched once a call), a CUDA graph does here: on a CUDA device ``SIFT``
+captures :func:`~.batched.extract_gray_batch` once per batch size (after
+one eager warm-up call on a side stream, which builds the kernels and
+fills every table cache) and replays it on every later call, returning
+fresh copies of the graph's outputs. The pipeline reads nothing back to
+the host, so one replay runs it whole. A replay runs no kernel wrapper,
+so ``ops.kernels.LAUNCHES`` does not count it (a profile of the replay
+counts its kernels: ``ops.kernels.device_launches``). A capture that
+fails raises. On
+the CPU the facade runs the pipeline eagerly; so does a direct call of
+``extract_gray_batch`` on any device.
 """
 
 from __future__ import annotations
@@ -45,7 +58,12 @@ def extract_gray(
     B=1, with the frame axis taken off every output."""
     from .batched import extract_gray_batch
 
-    kps, descs, counters = extract_gray_batch(gray[None], config, n_octaves)
+    return _first_frame(extract_gray_batch(gray[None], config, n_octaves))
+
+
+def _first_frame(result):
+    """Batched (Keypoints, Descriptors, counters) -> frame 0's."""
+    kps, descs, counters = result
     first = lambda a: a[0]
     return (
         Keypoints(*map(first, kps)),
@@ -61,6 +79,15 @@ def extract(
     return extract_gray(rgb_to_gray(image), config, n_octaves)
 
 
+class _Replay(NamedTuple):
+    """One captured ``extract_gray_batch``: the graph, the input it reads
+    and the outputs it writes."""
+
+    graph: torch.cuda.CUDAGraph
+    frames: torch.Tensor
+    outputs: Tuple
+
+
 class SIFT:
     """Per-resolution SIFT extractor.
 
@@ -68,6 +95,10 @@ class SIFT:
         sift = SIFT(480, 640)                         # on the CUDA card
         kps, descs, counters = sift.extract(frame)    # one [H, W] frame
         kb, db, cb = sift.extract_batch(frames)       # [B, H, W] batch
+
+    On a CUDA device each batch size is captured into a CUDA graph on its
+    first call (``extract`` is batch size 1) and replayed after; the
+    graphs of one instance share one memory pool.
     """
 
     def __init__(
@@ -85,13 +116,15 @@ class SIFT:
         self.n_octaves = (
             n_octaves if n_octaves is not None else config.num_octaves(height, width)
         )
+        self._graphs: Dict[int, _Replay] = {}
+        self._pool = None
 
     def _to_gray(self, images, ndim_gray: int) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(images) if not torch.is_tensor(images) else images)
         t = t.to(device=self.device, dtype=torch.float32)
         if t.ndim == ndim_gray + 1:
             t = rgb_to_gray(t)
-        if tuple(t.shape[-2:]) != (self.height, self.width):
+        if t.ndim != ndim_gray or tuple(t.shape[-2:]) != (self.height, self.width):
             raise ValueError(
                 f"expected frames of {self.height}x{self.width}, got {tuple(t.shape)}"
             )
@@ -99,10 +132,59 @@ class SIFT:
 
     def extract(self, image):
         """[H, W] gray or [H, W, C] RGB -> (Keypoints, Descriptors, counters)."""
-        return extract_gray(self._to_gray(image, 2), self.config, self.n_octaves)
+        return _first_frame(self._run(self._to_gray(image, 2)[None]))
 
     def extract_batch(self, images):
         """[B, H, W] gray or [B, H, W, C] RGB -> batched results."""
+        return self._run(self._to_gray(images, 3))
+
+    def _run(self, grays: torch.Tensor):
+        """``extract_gray_batch`` of a [B, H, W] batch on this instance's
+        device: eager on the CPU, a replay of the batch size's graph on a
+        CUDA device."""
         from .batched import extract_gray_batch
 
-        return extract_gray_batch(self._to_gray(images, 3), self.config, self.n_octaves)
+        if self.device.type != "cuda":
+            return extract_gray_batch(grays, self.config, self.n_octaves)
+        rep = self._graphs.get(grays.shape[0])
+        if rep is None:
+            rep = self._graphs[grays.shape[0]] = self._capture(grays)
+        kps, descs, counters = rep.outputs
+        fresh = lambda a: a.clone()
+        with torch.cuda.device(self.device):
+            rep.frames.copy_(grays)
+            rep.graph.replay()
+            return (
+                Keypoints(*map(fresh, kps)),
+                Descriptors(*map(fresh, descs)),
+                {k: fresh(v) for k, v in counters.items()},
+            )
+
+    def _capture(self, grays: torch.Tensor) -> _Replay:
+        """Warm up ``extract_gray_batch`` on a side stream at the shape of
+        ``grays``, then capture it into a graph over a static input."""
+        from .batched import extract_gray_batch
+
+        frames = grays.clone()
+        run = lambda: extract_gray_batch(frames, self.config, self.n_octaves)
+        with torch.cuda.device(self.device):
+            main = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                run()
+            main.wait_stream(side)
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            try:
+                # thread_local: another thread's CUDA calls (a process
+                # group's watchdog) neither fail nor break the capture.
+                with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+                    outputs = run()
+            except Exception as err:
+                raise RuntimeError(
+                    f"SIFT: capturing extract_gray_batch at {tuple(grays.shape)} "
+                    f"into a CUDA graph failed"
+                ) from err
+        return _Replay(graph, frames, outputs)

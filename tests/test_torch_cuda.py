@@ -12,9 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from siftmetal_tpu_torch.config import FAST_CONFIG, SiftConfig
+from siftmetal_tpu_torch.config import FAST_BF16_CONFIG, FAST_CONFIG, SiftConfig
 from siftmetal_tpu_torch.ops import gaussian as PG
-from siftmetal_tpu_torch.ops.kernels import LAUNCHES
+from siftmetal_tpu_torch.ops.kernels import LAUNCHES, device_launches, group_launches
 from siftmetal_tpu_torch.ops.kernels import pyramid as PP
 from siftmetal_tpu_torch.ops.kernels.blur import (
     blur_cascade,
@@ -40,6 +40,7 @@ from siftmetal_tpu_torch.ops.kernels.patches import (
     prepare_patch_fields,
 )
 from siftmetal_tpu_torch.sift import describe as PDS
+from torch_bits import assert_same_bits
 
 CFG = SiftConfig()
 FAST = FAST_CONFIG
@@ -968,19 +969,165 @@ def test_orientation_wraps_equal_the_old_expressions(cuda_dev):
         assert bool(((bins >= 0) & (bins < n_bins)).all())
 
 
+def _device_launches(fn):
+    """Launches of each wrapper group among the device kernels that a
+    call of ``fn`` ran, from torch.profiler (a graph replay runs no
+    wrapper, so LAUNCHES cannot see it): ``fn`` is profiled three times
+    and each group's count is the largest, since a profile loses a kernel
+    event now and then (about one call in 60 on the H100)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        counts.append(device_launches(names))
+    return {group: max(c[group] for c in counts) for group in counts[0]}
+
+
 @pytest.mark.cuda
 def test_one_orientation_launch_per_extract_batch(cuda_dev):
     """Parity and fast configurations: exactly one orientation launch per
-    extract_batch, whatever the number of octaves."""
+    extract_batch, whatever the number of octaves: counted on the device
+    in a replay of the graph that the first call captured, which runs no
+    wrapper."""
     from siftmetal_tpu_torch import SIFT
 
     rng = np.random.default_rng(65)
     x = _t(rng.uniform(0, 1, (2, 120, 160)).astype(np.float32), cuda_dev)
     for cfg in (CFG, FAST):
         sift = SIFT(120, 160, cfg, device=cuda_dev)
-        n0 = LAUNCHES["orientation_hist"]
         sift.extract_batch(x)
-        assert LAUNCHES["orientation_hist"] == n0 + 1
+        n0 = dict(LAUNCHES)
+        seen = _device_launches(lambda: sift.extract_batch(x))
+        assert seen[("orientation_hist",)] == 1
+        assert LAUNCHES == n0
+
+
+# --- the facade's CUDA graphs ----------------------------------------------------------
+
+GRAPH_CONFIGS = {
+    "parity": CFG,
+    "fast": FAST,
+    "fast_bf16": FAST_BF16_CONFIG,
+    "cascade": SiftConfig(use_oneshot_pyramid=False, use_pallas_pyramid=True),
+    "lean": SiftConfig(detect_slot_fields=False),
+    "fused": SiftConfig(use_fused_describe=True),
+    "band": SiftConfig(use_band_patches=True),
+}
+
+
+def _fresh(result):
+    kps, descs, ctr = result
+    return (type(kps)(*(t.clone() for t in kps)), type(descs)(*(t.clone() for t in descs)),
+            {k: v.clone() for k, v in ctr.items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(GRAPH_CONFIGS))
+def test_replay_equals_eager_bit_for_bit(cuda_dev, name):
+    """SIFT.extract_batch replays the graph its first call captured: every
+    field equal to the eager extract_gray_batch bit for bit, on a first
+    batch and on a second one; the first call's tensors are fresh (the
+    second replay leaves them as they were); the replay runs, counted on
+    the device, the kernel launches that the eager call's wrappers count,
+    and runs no wrapper itself."""
+    from siftmetal_tpu_torch import SIFT, extract_gray_batch
+
+    cfg = GRAPH_CONFIGS[name]
+    rng = np.random.default_rng(71)
+    xs = [_t(rng.uniform(0, 1, (2, 240, 320)).astype(np.float32), cuda_dev) for _ in range(2)]
+    sift = SIFT(240, 320, cfg, device=cuda_dev)
+    first = sift.extract_batch(xs[0])
+    kept = _fresh(first)
+    assert_same_bits(first, extract_gray_batch(xs[0], cfg, sift.n_octaves))
+    n0 = dict(LAUNCHES)
+    out = {}
+    replayed = _device_launches(lambda: out.setdefault("second", sift.extract_batch(xs[1])))
+    second = out["second"]
+    assert LAUNCHES == n0
+    want = extract_gray_batch(xs[1], cfg, sift.n_octaves)
+    eager = group_launches({k: LAUNCHES[k] - n0[k] for k in n0})
+    assert replayed == eager and sum(replayed.values()) > 0
+    assert_same_bits(second, want)
+    assert_same_bits(first, kept)
+    assert not torch.equal(first[2]["n_extrema"], second[2]["n_extrema"])
+
+
+@pytest.mark.cuda
+def test_one_instance_holds_a_graph_per_batch_size(cuda_dev):
+    """extract (batch size 1) and extract_batch at batch size 8 on one
+    instance: one graph each in one memory pool, each equal to its eager
+    call bit for bit, in either order."""
+    from siftmetal_tpu_torch import SIFT, extract_gray, extract_gray_batch
+
+    rng = np.random.default_rng(72)
+    x = _t(rng.uniform(0, 1, (8, 240, 320)).astype(np.float32), cuda_dev)
+    sift = SIFT(240, 320, CFG, device=cuda_dev)
+    n_oct = sift.n_octaves
+    assert_same_bits(sift.extract_batch(x), extract_gray_batch(x, CFG, n_oct))
+    assert_same_bits(sift.extract(x[3]), extract_gray(x[3], CFG, n_oct))
+    y = x.flip(-1).contiguous()
+    assert_same_bits(sift.extract_batch(y), extract_gray_batch(y, CFG, n_oct))
+    assert_same_bits(sift.extract(y[5]), extract_gray(y[5], CFG, n_oct))
+    assert sorted(sift._graphs) == [1, 8]
+
+
+@pytest.mark.cuda
+def test_eager_extraction_makes_no_host_sync(cuda_dev):
+    """extract_gray_batch under torch.cuda.set_sync_debug_mode("error")
+    once its tables are on the card (one call before): no read of the
+    card from the host anywhere in the pipeline."""
+    from siftmetal_tpu_torch import extract_gray_batch
+
+    rng = np.random.default_rng(73)
+    x = _t(rng.uniform(0, 1, (2, 240, 320)).astype(np.float32), cuda_dev)
+    n_oct = CFG.num_octaves(240, 320)
+    extract_gray_batch(x, CFG, n_oct)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, ctr = extract_gray_batch(x, CFG, n_oct)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(ctr["n_descriptors"].sum()) > 0
+
+
+_FAILING_CAPTURE = """
+import numpy as np, pytest, torch
+from siftmetal_tpu_torch import SIFT
+from siftmetal_tpu_torch.sift import batched
+compact = batched._compact_all
+def reading(per_octave, desc_rows, lane_overflow, counters, config):
+    int(lane_overflow.sum())
+    return compact(per_octave, desc_rows, lane_overflow, counters, config)
+batched._compact_all = reading
+x = torch.from_numpy(np.random.default_rng(74).uniform(0, 1, (1, 120, 160)).astype(np.float32)).cuda()
+sift = SIFT(120, 160)
+with pytest.raises(RuntimeError, match="capturing extract_gray_batch"):
+    sift.extract_batch(x)
+assert sift._graphs == {}, sift._graphs
+print("raised")
+"""
+
+
+@pytest.mark.cuda
+def test_capture_failure_raises(cuda_dev):
+    """A pipeline that reads the card from the host cannot be captured:
+    SIFT raises, keeps no graph and does not run the eager route instead.
+    In a child process: a failed capture leaves the
+    allocator's capture state of that process behind."""
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", _FAILING_CAPTURE], cwd=root, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0 and out.stdout.strip().endswith("raised"), out.stderr[-4000:]
 
 
 # --- SfM back-end on the card --------------------------------------------------------
