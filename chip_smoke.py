@@ -56,26 +56,38 @@ Phases, in order; any failure exits non-zero and prints no result:
     pnp_ransac; times of RANSAC, the warp and the small batched SVDs;
  6. sfm: bundle_adjust at 256 cameras / 65,536 landmarks / 196,608
     observations (tests/test_slam.py's mapping-size gates, ms per call,
-    peak memory, device busy and idle share); examples/video_sfm_torch.py's
+    peak memory, device busy and idle share), then SfmMap's solve of it
+    (slam.sfm._jit_bundle_adjust, CUDA graphs) against the eager call:
+    bits, capture seconds, memory kept, ms in turns, one profiled call of
+    each (as for every program below); examples/video_sfm_torch.py's
     scene at 480x640 rendered on the CPU (the same bits every run),
     extracted on the card with the launch counters set to 0 just before
     and read just after, then SfmMap at its
     full budgets (every frame registered, RMS < 1 px, ATE < 0.1; ms per
-    add_frame and of the global BA); the 52-keyframe loop-closure scene of
-    tests/test_sfm.py (every frame registered and its three bars on one
-    named RANSAC stream; two more printed, the default stream among them:
-    scripts/loop_scene_streams.py holds the statistic over many);
+    add_frame and of the global BA; the programs cached and the memory
+    reserved after it; the global BA's replay against its eager call); the
+    52-keyframe loop-closure scene of tests/test_sfm.py (every frame
+    registered and its three bars on one named RANSAC stream, whose
+    60-iteration pose graph is replayed against its eager call; two more
+    streams printed, the default stream among them:
+    scripts/loop_scene_streams.py holds the statistic over many; the
+    programs and memory after the scene);
  7. parallel: the multi-device layer in a child process (this script with
     --parallel-child), so its NCCL process group stays out of the other
     phases. The child starts before the kernels' build and gets ready
     meanwhile (imports, CUDA context, multihost.initialize at world size 1
     through NCCL and a barrier, the frame loader's build); it waits for
-    the parent's go before it runs anything timed: make_batch_extractor on phase 3's frames (launch counters set
-    to 0 just before and read just after, the main path's launches
-    checked, every field equal to extract_batch bit for bit);
-    make_sharded_matcher on phase 4's map (equal to match_bruteforce);
-    make_distributed_ba at phase 6's mapping size (cost to below 1, within
-    1e-4 / 1e-3 of bundle_adjust); run_elastic with one injected failure;
+    the parent's go before it runs anything timed. Each of the three
+    programs replays CUDA graphs with its collectives inside and is held
+    against its eager route (``run.eager``) as in phase 6:
+    make_batch_extractor on phase 3's frames (launch counters set to 0
+    just before and read just after; the replay's launches counted on the
+    device by kernel name and held against the eager route's counters,
+    the main path's launches checked; every field equal to extract_batch
+    bit for bit); make_sharded_matcher on phase 4's map (equal to
+    match_bruteforce); make_distributed_ba at phase 6's mapping size (cost
+    to below 1, within 1e-4 / 1e-3 of bundle_adjust); run_elastic with one
+    injected failure;
     FrameLoader on eight PPM frames of the video scene, extracted on the
     card. ms of each beside its one-device counterpart;
  8. flat: eight flat 480x640 frames through every pyramid route (one
@@ -1390,6 +1402,75 @@ def _hold_replay(tag, sift, x, got, want=None):
           f"graphs captured for batch sizes {sorted(sift._graphs)}", flush=True)
 
 
+def _differing_leaves(got, want):
+    """Positions of the tensor leaves of two results whose bits differ
+    (["structure"] when their trees differ)."""
+    import torch
+    from torch.utils import _pytree
+
+    (a, ta), (b, tb) = _pytree.tree_flatten(got), _pytree.tree_flatten(want)
+    if str(ta) != str(tb):
+        return ["structure"]
+    return [i for i, (x, y) in enumerate(zip(a, b)) if torch.is_tensor(x) and not _same_bits(x, y)]
+
+
+def _eager_vs_replay(tag, what, eager, replay, cache, smi_line, calls=2, profile_eager=True):
+    """A compiled program's replay against its eager run on the same
+    inputs. ``replay``'s first call (it captures when ``cache``, its
+    ``graphs.GraphCache``, has no program for its key: the eager warm-up,
+    the capture, a replay), its seconds and the device memory reserved
+    after it beyond before it (the allocator's cache emptied both times);
+    then its result and a second replay's against ``eager``'s, bit for
+    bit; then eager, replay, replay, eager, each a window of ``calls``
+    calls (CUDA events); one profiled call of each (wall, device busy,
+    device ops, idle share; the eager one only with ``profile_eager``).
+    Fails unless the bits are equal. Returns {route: median ms}."""
+    import torch
+    from torch.utils import _pytree
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    res0 = torch.cuda.memory_reserved()
+    n0 = len(cache.graphs)
+    t0 = time.perf_counter()
+    first = replay()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    captured = len(cache.graphs) - n0
+    torch.cuda.empty_cache()
+    kept = torch.cuda.memory_reserved() - res0
+    want = eager()
+    again = replay()
+    bad = _differing_leaves(first, want) + _differing_leaves(again, want)
+    _require(not bad, f"{tag}: {what} replayed differs from its eager run in leaves {bad}")
+    n_leaves = sum(torch.is_tensor(x) for x in _pytree.tree_leaves(want))
+    fns = {"eager": eager, "replay": replay}
+    ms = {k: [] for k in fns}
+    for order in (("eager", "replay"), ("replay", "eager")):
+        for k in order:
+            ms[k] += _windows(fns[k], 1, calls)
+    prof = {}
+    for k, fn in fns.items():
+        if k == "eager" and not profile_eager:
+            prof[k] = "not profiled"
+            continue
+        wall, busy, kern, *_ = _device_profile(fn)
+        prof[k] = (f"wall {wall:.3f} ms, busy {busy:.3f} ms in {len(kern)} device ops, idle "
+                   f"{100.0 * (1.0 - busy / wall):.1f}%")
+    med = {k: _median(v) for k, v in ms.items()}
+    first_call = ("warm-up, capture, replay" if captured else
+                  "a replay of the program an earlier call captured")
+    print(f"[{tag}] {what}: replay equal to eager in all {n_leaves} tensors bit for bit (twice); "
+          f"first call ({first_call}) {capture_s:.3f} s, keeps {kept / 2**20:.1f} MiB reserved "
+          f"({len(cache.graphs)} programs cached); ms a call in turns (windows of {calls}): eager "
+          f"{', '.join(f'{v:.3f}' for v in ms['eager'])}, replay "
+          f"{', '.join(f'{v:.3f}' for v in ms['replay'])} (median {med['eager']:.3f} against "
+          f"{med['replay']:.3f}, {med['eager'] / med['replay']:.2f}x); one profiled call: replay "
+          f"{prof['replay']}; eager {prof['eager']}; reserved now "
+          f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB ({smi_line})", flush=True)
+    return med
+
+
 def _windows(fn, n_windows, calls):
     """ms per call of ``fn`` in each of ``n_windows`` windows (CUDA events)."""
     import torch
@@ -1928,9 +2009,11 @@ def _sfm_mapping_ba(dev, smi_line):
     """tests/test_slam.py::test_ba_scales_to_mapping_size on the card: 256
     cameras, 65,536 landmarks each seen by 3 consecutive cameras (196,608
     observations), max_obs_per_landmark=4, 3 iterations; its gates (no
-    observation dropped, the cost below half the initial)."""
+    observation dropped, the cost below half the initial); then the same
+    solve replayed from its CUDA graphs against the eager call."""
     import torch
 
+    from siftmetal_tpu_torch.slam import sfm
     from siftmetal_tpu_torch.slam.ba import bundle_adjust
 
     problem = _mapping_problem(dev)
@@ -1955,6 +2038,11 @@ def _sfm_mapping_ba(dev, smi_line):
           f"ops (idle {100.0 * (1.0 - busy / wall):.1f}%) ({smi_line})", flush=True)
     print("[sfm] bundle_adjust most device time: " + "; ".join(
         f"{name[:44]} {ms:.3f} ms x{c}" for name, (ms, c) in top), flush=True)
+    _eager_vs_replay(
+        "sfm", "mapping-size BA replayed as SfmMap runs it (slam.sfm._jit_bundle_adjust, M=4, "
+               "3 iterations)",
+        run, lambda: sfm._jit_bundle_adjust(problem, 3, 0.0, max_obs_per_landmark=4),
+        sfm._BA_GRAPHS, smi_line)
 
 
 def _sfm_video(reports, dev, smi_line):
@@ -1964,12 +2052,16 @@ def _sfm_video(reports, dev, smi_line):
     .extract_batch with the launch counters set to 0 just before and read
     just after; SfmMap(k, SfmConfig()) at its full budgets: initialize,
     add_frame for each frame, one global bundle_adjust. Gates: every frame
-    registers, reprojection RMS < 1 px, ATE < 0.1."""
+    registers, reprojection RMS < 1 px, ATE < 0.1. Then the programs
+    cached and the memory reserved, and the global BA's solve replayed
+    against its eager call."""
     import numpy as np
     import torch
 
     from examples.video_sfm_torch import frames_of, render, textured_scene
     from siftmetal_tpu_torch import SIFT, SiftConfig
+    from siftmetal_tpu_torch.slam import sfm
+    from siftmetal_tpu_torch.slam.ba import bundle_adjust
     from siftmetal_tpu_torch.slam.sfm import SfmConfig, SfmMap
     from siftmetal_tpu_torch.slam.trajectory import ate_rmse, camera_centers
 
@@ -2022,6 +2114,27 @@ def _sfm_video(reports, dev, smi_line):
     _require(smap.n_cameras == n, f"sfm: {smap.n_cameras} of {n} frames registered")
     _require(rms < 1.0, f"sfm: reprojection RMS {rms:.3f} px >= 1")
     _require(ate < 0.1, f"sfm: ATE {ate:.4f} >= 0.1")
+    _print_programs("after the video scene")
+    valid, nc, nlm, no = smap._fill()
+    problem = smap._problem(valid, nc, nlm, no, 1)
+    _eager_vs_replay(
+        "sfm", f"the video map's global BA ({nc} / {nlm} / {no} camera, landmark and observation "
+               f"buckets, {cfg.ba_iterations} Huber iterations)",
+        lambda: bundle_adjust(problem, n_iterations=cfg.ba_iterations, huber_delta=cfg.ba_huber_delta),
+        lambda: sfm._jit_bundle_adjust(problem, cfg.ba_iterations, cfg.ba_huber_delta),
+        sfm._BA_GRAPHS, smi_line)
+
+
+def _print_programs(when):
+    """The SfM programs cached and the device memory reserved."""
+    import torch
+
+    from siftmetal_tpu_torch.slam import sfm
+
+    print(f"[sfm] {when}: {len(sfm._BA_GRAPHS.graphs)} BA and "
+          f"{len(sfm._POSE_GRAPH_GRAPHS.graphs)} pose-graph programs cached; device memory "
+          f"reserved {torch.cuda.memory_reserved() / 2**30:.3f} GiB, allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
 
 
 # RANSAC streams of the loop scene: an int is one generator of that seed
@@ -2072,14 +2185,17 @@ def _loop_scene(dev):
     return k, cams, frames
 
 
-def _loop_stream(dev, k, cams, frames, seed):
+def _loop_stream(dev, k, cams, frames, seed, smi_line):
     """One RANSAC stream through the loop scene with the test's config and
     flow (initialize on frames 0 and 1, add_frame for the rest, a global
     bundle_adjust every 10th frame); stops at the first frame that does
-    not register. Returns its numbers."""
+    not register. On the gated stream, the repair's pose graph replayed
+    against its eager call before the repair. Returns its numbers."""
     import numpy as np
     import torch
 
+    from siftmetal_tpu_torch.slam import sfm
+    from siftmetal_tpu_torch.slam.pose_graph import optimize_pose_graph
     from siftmetal_tpu_torch.slam.sfm import SfmConfig, SfmMap
     from siftmetal_tpu_torch.slam.trajectory import ate_rmse, camera_centers
 
@@ -2109,6 +2225,14 @@ def _loop_stream(dev, k, cams, frames, seed):
     t0 = time.perf_counter()
     edges = smap.detect_loop_closures(generator=gen)
     detect_ms = (time.perf_counter() - t0) * 1e3
+    if seed == LOOP_GATED:
+        g, huber = smap._pose_graph(edges)
+        _eager_vs_replay(
+            "sfm", f"the loop map's pose graph ({g.poses.shape[0]} poses / {g.edge_i.shape[0]} "
+                   f"edges buckets, 60 iterations)",
+            lambda: optimize_pose_graph(g, n_iterations=60, huber_delta=huber),
+            lambda: sfm._jit_optimize_pose_graph(g, 60, huber), sfm._POSE_GRAPH_GRAPHS,
+            smi_line, calls=1, profile_eager=False)
     t0 = time.perf_counter()
     smap.optimize_pose_graph(loop_closures=edges, n_iterations=60)
     graph_ms = (time.perf_counter() - t0) * 1e3
@@ -2118,7 +2242,7 @@ def _loop_stream(dev, k, cams, frames, seed):
     return dict(seed=seed, registered=n, build_s=build_s, base=base, bad=bad, repaired=repaired,
                 edges=[(int(e[0]), int(e[1])) for e in edges], detect_ms=detect_ms,
                 graph_ms=graph_ms, landmarks=smap.n_landmarks, culled=smap.n_culled,
-                each_bar=bars, bars=all(bars))
+                each_bar=bars, bars=all(bars), programs=len(sfm._BA_GRAPHS.graphs))
 
 
 def _print_loop_stream(r, n, smi_line):
@@ -2130,7 +2254,8 @@ def _print_loop_stream(r, n, smi_line):
           f"({r['landmarks']} landmarks, {r['culled']} culled); ATE base {r['base']:.5f}, "
           f"drifted {r['bad']:.5f}, repaired {r['repaired']:.5f}; closures {r['edges']}; "
           f"detect_loop_closures {r['detect_ms']:.1f} ms, optimize_pose_graph (60 iterations) "
-          f"{r['graph_ms']:.1f} ms; three bars {r['each_bar']} ({smi_line})", flush=True)
+          f"{r['graph_ms']:.1f} ms; three bars {r['each_bar']}; BA programs cached after it "
+          f"{r['programs']} ({smi_line})", flush=True)
 
 
 def _sfm_loop(dev, smi_line):
@@ -2143,9 +2268,10 @@ def _sfm_loop(dev, smi_line):
     bars), not gated."""
     k, cams, frames = _loop_scene(dev)
     n = len(frames)
-    runs = [_loop_stream(dev, k, cams, frames, seed) for seed in LOOP_STREAMS]
+    runs = [_loop_stream(dev, k, cams, frames, seed, smi_line) for seed in LOOP_STREAMS]
     for r in runs:
         _print_loop_stream(r, n, smi_line)
+    _print_programs("after the loop scene")
     print(f"[sfm] loop streams: {sum(r['registered'] == n for r in runs)} of {len(runs)} registered "
           f"every frame, {sum(r['bars'] for r in runs)} of {len(runs)} met the three bars", flush=True)
     gated = runs[LOOP_STREAMS.index(LOOP_GATED)]
@@ -2281,31 +2407,51 @@ def phase_parallel(child, smi_line):
 
 
 def _parallel_extraction(mesh, smi_line):
-    """make_batch_extractor at world size 1 on the main path's frames:
-    the main path's launches, every field equal to SIFT.extract_batch bit
-    for bit, ms a batch of both in turns."""
+    """make_batch_extractor at world size 1 on the main path's frames: its
+    replay against its eager route (bit for bit, ms in turns); then a
+    replay with every launch counter set to 0 just before and read just
+    after: a replay runs no wrapper, so its launches are counted on the
+    device by kernel name (the largest of three profiles, as in _drive)
+    and held group by group against the eager route's counters (the main
+    path's launches checked); every field equal to SIFT.extract_batch bit
+    for bit; ms a batch of both in turns."""
     import torch
 
     from siftmetal_tpu_torch import SIFT, SiftConfig
-    from siftmetal_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from siftmetal_tpu_torch.ops.kernels import (
+        KERNEL_GROUPS, LAUNCHES, device_launches, group_launches, reset_launches)
     from siftmetal_tpu_torch.parallel import make_batch_extractor
 
     sift = SIFT(480, 640)
     x = _noise_frames(sift.device)
     extract = make_batch_extractor(mesh, 480, 640, SiftConfig())
-    extract(x)                                # warm-up: tables, allocator, communicator
+    _eager_vs_replay("parallel", "make_batch_extractor (NCCL, world 1) 8x480x640",
+                     lambda: extract.eager(x), lambda: extract(x), extract.graphs, smi_line, calls=5)
     ref = sift.extract_batch(x)
     torch.cuda.synchronize()
     reset_launches()
-    out = extract(x)
+    extract.eager(x)
     torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+    eager_launches = dict(LAUNCHES)
+    out, profiles = {}, []
+    reset_launches()
+    for _ in range(3):
+        kern = _device_profile(lambda: out.__setitem__("result", extract(x)))[2]
+        profiles.append(device_launches(e.name for e in kern))
+    host = dict(LAUNCHES)
+    _require(sum(host.values()) == 0, f"parallel: the replay ran kernel wrappers {host}")
+    seen = {g: max(p[g] for p in profiles) for g in profiles[0]}
+    want = group_launches(eager_launches)
+    bad = {"+".join(g): (seen[g], want[g]) for g in KERNEL_GROUPS.values() if seen[g] != want[g]}
+    _require(not bad, f"parallel: device launches of the replayed sharded extractor differ from "
+                      f"its eager route's (kernel group: (replay, eager)) {bad}")
+    launches = eager_launches
     missing = [k for k in PARITY_KERNELS if launches[k] == 0]
     _require(not missing, f"parallel: the sharded extractor never launched {missing}")
     _require_launches("parallel", launches, PARITY_PYRAMID)
     _require_launches("parallel", launches, PARITY_DETECT, "detection")
     _require_launches("parallel", launches, ONE_ORIENTATION, "orientation")
-    kps, descs, ctr = out
+    kps, descs, ctr = out["result"]
     rk, rd, rc = ref
     for name, a, b in zip(kps._fields + descs._fields, (*kps, *descs), (*rk, *rd)):
         _require(a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b),
@@ -2316,8 +2462,9 @@ def _parallel_extraction(mesh, smi_line):
     for _ in range(2):
         ms_shard += _windows(lambda: extract(x), 1, 5)
         ms_one += _windows(lambda: sift.extract_batch(x), 1, 5)
-    print(f"[parallel] make_batch_extractor (NCCL, world 1) 8x480x640: every field equal to "
-          f"SIFT.extract_batch bit for bit; launches "
+    print(f"[parallel] make_batch_extractor (NCCL, world 1) 8x480x640 replayed: every field equal "
+          f"to SIFT.extract_batch bit for bit; launches of the replayed call, counted on the "
+          f"device {json.dumps({'+'.join(g): n for g, n in seen.items() if n})}, by wrapper "
           f"{json.dumps({k: v for k, v in launches.items() if v})}; median {_median(ms_shard):.3f} "
           f"ms/batch (windows of 5: {', '.join(f'{v:.3f}' for v in ms_shard)}) against "
           f"extract_batch {_median(ms_one):.3f} ({', '.join(f'{v:.3f}' for v in ms_one)}) "
@@ -2325,8 +2472,9 @@ def _parallel_extraction(mesh, smi_line):
 
 
 def _parallel_matcher(mesh, smi_line):
-    """make_sharded_matcher on the fast phase's 4096 x 131072 map: every
-    field equal to match_bruteforce; ms of both in turns."""
+    """make_sharded_matcher on the fast phase's 4096 x 131072 map: its
+    replay against its eager route; every field equal to
+    match_bruteforce; ms of both in turns."""
     import torch
 
     from siftmetal_tpu_torch.match import match_bruteforce
@@ -2334,6 +2482,9 @@ def _parallel_matcher(mesh, smi_line):
 
     queries, targets, qv, tv, src = _big_map(torch.device("cuda"))
     match = make_sharded_matcher(mesh)
+    _eager_vs_replay("parallel", "make_sharded_matcher (NCCL, world 1) 4096 x 131072",
+                     lambda: match.eager(queries, qv, targets, tv),
+                     lambda: match(queries, qv, targets, tv), match.graphs, smi_line, calls=3)
     got = match(queries, qv, targets, tv)
     want = match_bruteforce(queries, targets, qv, tv)
     _require(torch.equal(got.valid, want.valid), "parallel: sharded matcher valid != match_bruteforce")
@@ -2354,8 +2505,9 @@ def _parallel_matcher(mesh, smi_line):
 
 def _parallel_ba(mesh, smi_line):
     """make_distributed_ba at the sfm phase's mapping size, 3 iterations:
-    the cost falls from ~228192 to below 1, as bundle_adjust's does; ms a
-    call of both in turns, and the peak memory of the distributed one."""
+    the cost falls from ~228192 to below 1, as bundle_adjust's does; its
+    replay against its eager route; ms a call of it and bundle_adjust in
+    turns, and the peak memory of the distributed one."""
     import torch
 
     from siftmetal_tpu_torch.parallel import make_distributed_ba, shard_ba_problem
@@ -2384,6 +2536,9 @@ def _parallel_ba(mesh, smi_line):
     _require(dc < 1e-4 and dl < 1e-3,
              f"parallel: distributed BA differs from bundle_adjust by {dc:.2e} (cameras), "
              f"{dl:.2e} (landmarks)")
+    _eager_vs_replay("parallel", "make_distributed_ba (NCCL, world 1) at mapping size, M=4, "
+                     "3 iterations", lambda: run.eager(sharded), lambda: run(sharded), run.graphs,
+                     smi_line)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)
@@ -2399,9 +2554,10 @@ def _parallel_ba(mesh, smi_line):
           f"of bundle_adjust; shard_ba_problem {shard_ms:.1f} ms on the host; median "
           f"{_median(ms_dist):.3f} ms a call ({', '.join(f'{v:.3f}' for v in ms_dist)}) against "
           f"bundle_adjust {_median(ms_one):.3f} ({', '.join(f'{v:.3f}' for v in ms_one)}); peak "
-          f"memory {peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} MiB above the inputs); "
-          f"set-up wall s: problem {set_up[0]:.2f}, first distributed call {set_up[1]:.2f}, first "
-          f"bundle_adjust {set_up[2]:.2f} ({smi_line})", flush=True)
+          f"memory allocated in replayed calls {peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} "
+          f"MiB above the inputs; the graphs' pool is reserved apart: the line above); set-up "
+          f"wall s: problem {set_up[0]:.2f}, first distributed call (warm-up, capture, replay) "
+          f"{set_up[1]:.2f}, first bundle_adjust {set_up[2]:.2f} ({smi_line})", flush=True)
 
 
 def _parallel_elastic():

@@ -15,7 +15,12 @@ independent of L.
 
 The accept/reject decision comes from the all-reduced cost, which every
 rank holds bit for bit, and stays a ``torch.where`` on the device: nothing
-in the LM loop reads a value on the host.
+in the LM loop reads a value on the host. On the card ``run`` replays the
+solve from CUDA graphs, one program a sharded shape (``graphs``; the
+counterpart of the JAX ``jax.jit`` over ``shard_map``): a prologue, one LM
+iteration with its four all-reduces, captured once and replayed
+``n_iterations`` times, and an epilogue with the landmarks' all-gather.
+The gauge is an input on the device. On the CPU (gloo) it runs eagerly.
 """
 
 from __future__ import annotations
@@ -27,16 +32,19 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..graphs import GraphCache
 from ..slam.ba import (
     BAProblem,
     GroupedObs,
+    LMSetup,
+    LMState,
     _check_precision,
     finish_step,
     grouped_cost,
     schur_pieces,
     schur_segments,
 )
-from .extraction import _check_inputs, all_gather_rows
+from .extraction import _check_inputs, _routes, all_gather_rows
 from .multihost import rank_device
 
 
@@ -51,7 +59,7 @@ class ShardedBA(NamedTuple):
     cam: torch.Tensor        # [D, L/D, M] int32 — GLOBAL camera index
     uv: torch.Tensor         # [D, L/D, M, 2]
     valid: torch.Tensor      # [D, L/D, M] bool
-    fixed_cameras: torch.Tensor  # [1] int32, on the host (read once a solve)
+    fixed_cameras: torch.Tensor  # [1] int32
 
 
 def _np(t) -> np.ndarray:
@@ -68,7 +76,8 @@ def shard_ba_problem(
     slots take its valid observations in observation order; past M
     (default: the largest degree, rounded up to a multiple of 2) they are
     dropped and the count is logged as a warning. The tensors keep the
-    problem's device; ``fixed_cameras`` stays on the host."""
+    problem's device, ``fixed_cameras`` (an int or a 0-dim tensor in
+    ``problem``) too."""
     l_n = problem.landmarks.shape[0]
     if l_n % n_devices:
         raise ValueError(f"{l_n} landmarks do not split over {n_devices} devices")
@@ -117,7 +126,7 @@ def shard_ba_problem(
         cam=t(cam_g.reshape(n_devices, per, m)),
         uv=t(uv_g.reshape(n_devices, per, m, 2)),
         valid=t(val_g.reshape(n_devices, per, m)),
-        fixed_cameras=torch.tensor([int(problem.fixed_cameras)], dtype=torch.int32),
+        fixed_cameras=t(np.array([int(problem.fixed_cameras)], np.int32)),
     )
 
 
@@ -132,7 +141,7 @@ def make_distributed_ba(
     (cameras [C, 6], landmarks [D, L/D, 3], (initial_cost, final_cost)),
     the same on every rank. Each rank computes on its device and takes
     its own shard of ``sharded`` (the whole ``ShardedBA``, as every rank
-    holds it)."""
+    holds it). ``run.eager`` is the same solve without graphs."""
     hd = huber_delta if huber_delta > 0 else 1e12
     group = mesh.get_group(axis)
     world = mesh.size()
@@ -143,50 +152,59 @@ def make_distributed_ba(
         dist.all_reduce(t, group=group)
         return t
 
-    def run(sharded: ShardedBA):
+    def prologue(cams, lms, k, cam, uv, valid):
+        _check_precision(cams)
+        g = GroupedObs(cam=cam, uv=uv, valid=valid,
+                       dropped=torch.zeros((), dtype=torch.int32, device=cam.device))
+        cams, lms = cams.clone(), lms.clone()
+        lam = torch.full((), damping, dtype=cams.dtype, device=cams.device)
+        c_init = psum(grouped_cost(cams, lms, k, g, huber_delta))
+        state = LMState(cams, lms, c_init.clone(), lam)
+        return LMSetup(g, schur_segments(g, cams.shape[0]), state, c_init)
+
+    def iteration(k, fixed, setup):
+        s, g = setup.state, setup.g
+        c_n = s.cameras.shape[0]
+        hcc, cross, rhs, hll_inv, G, b_l = schur_pieces(
+            s.cameras, s.landmarks, k, g, c_n, s.lam, hd, fixed, setup.segs
+        )
+        # ONE all-reduce each for the reduced system (O(C^2), not O(L)).
+        d_cam, d_lm = finish_step(
+            psum(hcc), psum(cross), psum(rhs), hll_inv, G, b_l, g.cam, c_n, s.lam, fixed,
+        )
+        new_c = s.cameras + d_cam.to(s.cameras.dtype)
+        new_l = s.landmarks + d_lm.to(s.landmarks.dtype)
+        c1 = psum(grouped_cost(new_c, new_l, k, g, huber_delta))
+        accept = c1 < s.c0
+        s.cameras.copy_(torch.where(accept, new_c, s.cameras))
+        s.landmarks.copy_(torch.where(accept, new_l, s.landmarks))
+        s.c0.copy_(torch.where(accept, c1, s.c0))
+        s.lam.copy_(torch.where(accept, s.lam * 0.5, s.lam * 10.0).clamp(1e-8, 1e6))
+
+    def epilogue(setup):
+        # The carried cost is the total cost of the state kept.
+        s = setup.state
+        return s.cameras, all_gather_rows(group, [s.landmarks])[0], (setup.c_init, s.c0)
+
+    def solve(steps, cams, lms, k, cam, uv, valid, fixed):
+        setup = steps.stage(prologue, cams, lms, k, cam, uv, valid)
+        steps.loop(n_iterations, iteration, k, fixed, setup)
+        return steps.stage(epilogue, setup)
+
+    graphs = GraphCache(solve, "the distributed bundle adjustment")
+
+    def call(route, sharded: ShardedBA):
         if sharded.landmarks.shape[0] != world:
             raise ValueError(
                 f"a problem sharded {sharded.landmarks.shape[0]} ways on a mesh of {world}"
             )
         _check_inputs(dev, "the problem", *sharded)
         r = mesh.get_local_rank(axis)
-        cams = sharded.cameras.to(dev)
-        _check_precision(cams)
-        lms = sharded.landmarks[r].to(dev)
-        k = sharded.k.to(dev)
-        g = GroupedObs(
-            cam=sharded.cam[r].to(dev), uv=sharded.uv[r].to(dev),
-            valid=sharded.valid[r].to(dev),
-            dropped=torch.zeros((), dtype=torch.int32, device=dev),
+        cams, lms_all, costs = route(
+            sharded.cameras.to(dev), sharded.landmarks[r].to(dev), sharded.k.to(dev),
+            sharded.cam[r].to(dev), sharded.uv[r].to(dev), sharded.valid[r].to(dev),
+            sharded.fixed_cameras.to(dev).reshape(()),
         )
-        fixed = int(sharded.fixed_cameras[0])
-        c_n = cams.shape[0]
-        segs = schur_segments(g, c_n)
+        return cams, lms_all.reshape(sharded.landmarks.shape), costs
 
-        def total_cost(c, l):
-            return psum(grouped_cost(c, l, k, g, huber_delta))
-
-        lam = torch.full((), damping, dtype=cams.dtype, device=dev)
-        c_init = total_cost(cams, lms)
-        c0 = c_init
-        for _ in range(n_iterations):
-            hcc, cross, rhs, hll_inv, G, b_l = schur_pieces(
-                cams, lms, k, g, c_n, lam, hd, fixed, segs
-            )
-            # ONE all-reduce each for the reduced system (O(C^2), not O(L)).
-            d_cam, d_lm = finish_step(
-                psum(hcc), psum(cross), psum(rhs), hll_inv, G, b_l, g.cam, c_n, lam, fixed,
-            )
-            new_c = cams + d_cam.to(cams.dtype)
-            new_l = lms + d_lm.to(lms.dtype)
-            c1 = total_cost(new_c, new_l)
-            accept = c1 < c0
-            cams = torch.where(accept, new_c, cams)
-            lms = torch.where(accept, new_l, lms)
-            c0 = torch.where(accept, c1, c0)
-            lam = torch.where(accept, lam * 0.5, lam * 10.0).clamp(1e-8, 1e6)
-        # The carried cost is the total cost of the state kept.
-        lms_all = all_gather_rows(group, [lms])[0]
-        return cams, lms_all.reshape(sharded.landmarks.shape), (c_init, c0)
-
-    return run
+    return _routes(call, graphs)

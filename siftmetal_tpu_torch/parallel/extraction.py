@@ -17,10 +17,17 @@ place of the JAX package's global output array:
 Every output field has a static padded size, so one all-gather of the
 fields packed as bytes moves them all, whatever their dtype (gloo gathers
 no bool tensors), with no size exchange.
+
+On the card each rank replays its body and the all-gather from one CUDA
+graph a shard shape (``graphs``; the counterpart of the JAX ``jax.jit``
+over ``shard_map``). The shard's slice and its copy to the device stay
+outside, a copy into the graph's input. On the CPU (gloo) they run
+eagerly.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence
 
 import torch
@@ -28,6 +35,7 @@ import torch.distributed as dist
 
 from ..config import SiftConfig
 from ..device import resolve_device
+from ..graphs import GraphCache
 from ..match.matcher import _accept, _top2_blocked
 from ..sift.batched import extract_gray_batch
 from ..sift.detect import Keypoints
@@ -98,6 +106,17 @@ def all_gather_rows(group, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor
     return out
 
 
+def _routes(call, graphs: GraphCache):
+    """``run(*args)``: ``call(graphs, *args)``, the program replayed from
+    its graphs on the card (eager on the CPU); ``run.eager`` runs it
+    eagerly on any device (the route a replay is measured and held
+    against); ``run.graphs`` is the cache."""
+    run = functools.partial(call, graphs)
+    run.eager = functools.partial(call, graphs.eager)
+    run.graphs = graphs
+    return run
+
+
 def _shard(mesh, axis: str, n: int, what: str) -> slice:
     world = mesh.size()
     if n % world:
@@ -123,13 +142,7 @@ def make_batch_extractor(
     group = mesh.get_group(axis)
     dev = rank_device(mesh)
 
-    def run(frames):
-        frames = torch.as_tensor(frames)
-        _check_inputs(dev, "the batch", frames)
-        if tuple(frames.shape[1:]) != (height, width):
-            raise ValueError(f"expected [B, {height}, {width}] frames, got {tuple(frames.shape)}")
-        shard = frames[_shard(mesh, axis, frames.shape[0], "the batch")]
-        shard = shard.to(device=dev, dtype=torch.float32).contiguous()
+    def extract_and_gather(shard):
         kps, descs, counters = extract_gray_batch(shard, config, n_oct)
         keys = list(counters)
         nk, nd = len(kps), len(descs)
@@ -140,7 +153,18 @@ def make_batch_extractor(
             dict(zip(keys, out[nk + nd:])),
         )
 
-    return run
+    graphs = GraphCache(lambda steps, shard: steps.stage(extract_and_gather, shard),
+                        "the sharded extractor")
+
+    def call(route, frames):
+        frames = torch.as_tensor(frames)
+        _check_inputs(dev, "the batch", frames)
+        if tuple(frames.shape[1:]) != (height, width):
+            raise ValueError(f"expected [B, {height}, {width}] frames, got {tuple(frames.shape)}")
+        shard = frames[_shard(mesh, axis, frames.shape[0], "the batch")]
+        return route(shard.to(device=dev, dtype=torch.float32).contiguous())
+
+    return _routes(call, graphs)
 
 
 def make_sharded_matcher(
@@ -164,14 +188,10 @@ def make_sharded_matcher(
     dev = rank_device(mesh)
     world = mesh.size()
 
-    def run(query_features, query_valid, target_features, target_valid):
-        _check_inputs(dev, "a descriptor set", query_features, query_valid,
-                      target_features, target_valid)
-        sl = _shard(mesh, axis, target_features.shape[0], "the target set")
-        qf, qv = query_features.to(dev), query_valid.to(dev)
-        b1, b2, i1, i2 = _top2_blocked(qf, target_features[sl].to(dev), target_valid[sl].to(dev))
+    def match(qf, qv, tf, tv, offset):
+        b1, b2, i1, i2 = _top2_blocked(qf, tf, tv)
         d2_l = torch.stack([b1, b2], dim=1)
-        idx_l = torch.stack([i1, i2], dim=1).to(torch.int32) + sl.start
+        idx_l = torch.stack([i1, i2], dim=1).to(torch.int32) + offset
         d2_all, idx_all = all_gather_rows(group, [d2_l, idx_l])       # [D * Q, 2]
         q_n = qf.shape[0]
         d2_flat = d2_all.reshape(world, q_n, 2).transpose(0, 1).reshape(q_n, 2 * world)
@@ -182,4 +202,14 @@ def make_sharded_matcher(
         d2nd = torch.sqrt(torch.clamp(d2_sorted[:, 1], min=0.0))
         return _accept(d1, d2nd, best[:, 0], best[:, 1], qv, absolute_threshold, ratio_threshold)
 
-    return run
+    graphs = GraphCache(lambda steps, *a, offset: steps.stage(match, *a, offset),
+                        "the sharded matcher")
+
+    def call(route, query_features, query_valid, target_features, target_valid):
+        _check_inputs(dev, "a descriptor set", query_features, query_valid,
+                      target_features, target_valid)
+        sl = _shard(mesh, axis, target_features.shape[0], "the target set")
+        return route(query_features.to(dev), query_valid.to(dev), target_features[sl].to(dev),
+                     target_valid[sl].to(dev), offset=sl.start)
+
+    return _routes(call, graphs)

@@ -8,15 +8,15 @@ for the CPU; without a card it raises rather than carry on elsewhere.
 
 What ``jax.jit`` does for the JAX facade (one compiled program per shape,
 dispatched once a call), a CUDA graph does here: on a CUDA device ``SIFT``
-captures :func:`~.batched.extract_gray_batch` once per batch size (after
-one eager warm-up call on a side stream, which builds the kernels and
-fills every table cache) and replays it on every later call, returning
-fresh copies of the graph's outputs. The pipeline reads nothing back to
-the host, so one replay runs it whole. A replay runs no kernel wrapper,
-so ``ops.kernels.LAUNCHES`` does not count it (a profile of the replay
-counts its kernels: ``ops.kernels.device_launches``). A capture that
-fails raises. On
-the CPU the facade runs the pipeline eagerly; so does a direct call of
+captures :func:`~.batched.extract_gray_batch` once per batch size through
+``graphs.GraphCache`` (after one eager warm-up call on a side stream,
+which builds the kernels and fills every table cache) and replays it on
+every later call, returning fresh copies of the graph's outputs. The
+pipeline reads nothing back to the host, so one replay runs it whole. A
+replay runs no kernel wrapper, so ``ops.kernels.LAUNCHES`` does not count
+it (a profile of the replay counts its kernels:
+``ops.kernels.device_launches``). A capture that fails raises. On the CPU
+the facade runs the pipeline eagerly; so does a direct call of
 ``extract_gray_batch`` on any device.
 """
 
@@ -29,6 +29,7 @@ import torch
 
 from ..config import DEFAULT_CONFIG, SiftConfig
 from ..device import resolve_device
+from ..graphs import GraphCache
 from ..ops.image import rgb_to_gray
 from .detect import Keypoints
 
@@ -79,15 +80,6 @@ def extract(
     return extract_gray(rgb_to_gray(image), config, n_octaves)
 
 
-class _Replay(NamedTuple):
-    """One captured ``extract_gray_batch``: the graph, the input it reads
-    and the outputs it writes."""
-
-    graph: torch.cuda.CUDAGraph
-    frames: torch.Tensor
-    outputs: Tuple
-
-
 class SIFT:
     """Per-resolution SIFT extractor.
 
@@ -116,8 +108,7 @@ class SIFT:
         self.n_octaves = (
             n_octaves if n_octaves is not None else config.num_octaves(height, width)
         )
-        self._graphs: Dict[int, _Replay] = {}
-        self._pool = None
+        self._cache = GraphCache(_extract_program, "extract_gray_batch")
 
     def _to_gray(self, images, ndim_gray: int) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(images) if not torch.is_tensor(images) else images)
@@ -138,53 +129,19 @@ class SIFT:
         """[B, H, W] gray or [B, H, W, C] RGB -> batched results."""
         return self._run(self._to_gray(images, 3))
 
+    @property
+    def _graphs(self) -> Dict[int, object]:
+        """The captured programs by batch size."""
+        return {key.tensors[0][0][0]: prog for key, prog in self._cache.graphs.items()}
+
     def _run(self, grays: torch.Tensor):
         """``extract_gray_batch`` of a [B, H, W] batch on this instance's
         device: eager on the CPU, a replay of the batch size's graph on a
         CUDA device."""
-        from .batched import extract_gray_batch
+        return self._cache(grays, config=self.config, n_octaves=self.n_octaves)
 
-        if self.device.type != "cuda":
-            return extract_gray_batch(grays, self.config, self.n_octaves)
-        rep = self._graphs.get(grays.shape[0])
-        if rep is None:
-            rep = self._graphs[grays.shape[0]] = self._capture(grays)
-        kps, descs, counters = rep.outputs
-        fresh = lambda a: a.clone()
-        with torch.cuda.device(self.device):
-            rep.frames.copy_(grays)
-            rep.graph.replay()
-            return (
-                Keypoints(*map(fresh, kps)),
-                Descriptors(*map(fresh, descs)),
-                {k: fresh(v) for k, v in counters.items()},
-            )
 
-    def _capture(self, grays: torch.Tensor) -> _Replay:
-        """Warm up ``extract_gray_batch`` on a side stream at the shape of
-        ``grays``, then capture it into a graph over a static input."""
-        from .batched import extract_gray_batch
+def _extract_program(steps, frames, config, n_octaves):
+    from .batched import extract_gray_batch
 
-        frames = grays.clone()
-        run = lambda: extract_gray_batch(frames, self.config, self.n_octaves)
-        with torch.cuda.device(self.device):
-            main = torch.cuda.current_stream()
-            side = torch.cuda.Stream()
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                run()
-            main.wait_stream(side)
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            graph = torch.cuda.CUDAGraph()
-            try:
-                # thread_local: another thread's CUDA calls (a process
-                # group's watchdog) neither fail nor break the capture.
-                with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
-                    outputs = run()
-            except Exception as err:
-                raise RuntimeError(
-                    f"SIFT: capturing extract_gray_batch at {tuple(grays.shape)} "
-                    f"into a CUDA graph failed"
-                ) from err
-        return _Replay(graph, frames, outputs)
+    return steps.stage(extract_gray_batch, frames, config, n_octaves)

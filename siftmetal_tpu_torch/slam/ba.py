@@ -20,7 +20,12 @@ reduced system and trust control, on the tensors' device.
 
 Nothing in the iteration loop reads a tensor's value on the host: the
 accept/reject decision and the damping update are ``torch.where``s, so
-the whole solve queues on the card. The state, residuals, Jacobians and
+the whole solve queues on the card. The solve is a ``graphs`` program
+(``lm_solve``): a prologue, one iteration that writes its state in place
+(the JAX package's ``lax.fori_loop`` body), run ``n_iterations`` times,
+and an epilogue; ``bundle_adjust`` runs it eagerly, and on the card
+``slam.sfm._jit_bundle_adjust`` captures each piece once a shape and
+replays the iteration n times. The state, residuals, Jacobians and
 costs are fp32; the normal equations are assembled and solved in float64
 (see ``ACC``); TF32 must be off (``device.resolve_device`` turns it off).
 """
@@ -31,6 +36,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..graphs import EAGER
 from .camera import project
 
 
@@ -42,7 +48,7 @@ class BAProblem(NamedTuple):
     lm_idx: torch.Tensor     # [O] int32
     uv: torch.Tensor         # [O, 2] observed pixels (u=col, v=row)
     valid: torch.Tensor      # [O] bool
-    fixed_cameras: int = 1   # first N cameras held fixed (gauge freedom)
+    fixed_cameras: int = 1   # first N cameras held fixed (gauge); int or 0-dim tensor
 
 
 class BAStats(NamedTuple):
@@ -326,6 +332,84 @@ def _gauss_newton_step(cameras, landmarks, k, g, n_cameras, lam, hd, fixed, segs
     return d_cam.to(cameras.dtype), d_lm.to(landmarks.dtype)
 
 
+class LMState(NamedTuple):
+    """The state an LM iteration carries and writes in place."""
+
+    cameras: torch.Tensor
+    landmarks: torch.Tensor
+    c0: torch.Tensor        # (robust) cost of the state kept
+    lam: torch.Tensor       # damping
+
+
+class LMSetup(NamedTuple):
+    """What :func:`lm_prologue` prepares for the iterations."""
+
+    g: GroupedObs
+    segs: tuple
+    state: LMState
+    c_init: torch.Tensor
+
+
+def lm_prologue(problem: BAProblem, damping, huber_delta, max_obs_per_landmark) -> LMSetup:
+    """Group the observations, sort the segment-sum indices and take the
+    first costs; the state is a copy of the problem's."""
+    g = group_by_landmark(
+        problem.cam_idx, problem.lm_idx, problem.uv, problem.valid,
+        problem.landmarks.shape[0], max_obs_per_landmark,
+    )
+    cameras, landmarks = problem.cameras.clone(), problem.landmarks.clone()
+    lam = torch.full((), damping, dtype=cameras.dtype, device=cameras.device)
+    c_init = cost(problem)
+    # Accept/reject on the SAME (robust) objective the step minimizes; the
+    # cost of the state carried into the next iteration is the one just
+    # computed for it.
+    c0 = grouped_cost(cameras, landmarks, problem.k, g, huber_delta)
+    segs = schur_segments(g, cameras.shape[0])
+    return LMSetup(g, segs, LMState(cameras, landmarks, c0, lam), c_init)
+
+
+def lm_iteration(problem: BAProblem, setup: LMSetup, huber_delta) -> None:
+    """One damped Gauss-Newton step with its accept/reject, written into
+    ``setup.state`` in place (the ``lax.fori_loop`` body of the JAX
+    package): a rejected step leaves the state unchanged and inflates the
+    damping 10x; an accepted one relaxes it 2x."""
+    hd = huber_delta if huber_delta > 0 else 1e12
+    s, g, k = setup.state, setup.g, problem.k
+    d_cam, d_lm = _gauss_newton_step(
+        s.cameras, s.landmarks, k, g, s.cameras.shape[0], s.lam, hd,
+        problem.fixed_cameras, setup.segs,
+    )
+    new_cams = s.cameras + d_cam
+    new_lms = s.landmarks + d_lm
+    c1 = grouped_cost(new_cams, new_lms, k, g, huber_delta)
+    accept = c1 < s.c0
+    s.cameras.copy_(torch.where(accept, new_cams, s.cameras))
+    s.landmarks.copy_(torch.where(accept, new_lms, s.landmarks))
+    s.c0.copy_(torch.where(accept, c1, s.c0))
+    s.lam.copy_(torch.where(accept, s.lam * 0.5, s.lam * 10.0).clamp(1e-8, 1e6))
+
+
+def lm_epilogue(problem: BAProblem, setup: LMSetup):
+    """(cameras, landmarks, BAStats) of the state kept."""
+    s = setup.state
+    stats = BAStats(
+        initial_cost=setup.c_init,
+        final_cost=cost(problem._replace(cameras=s.cameras, landmarks=s.landmarks)),
+        n_observations=problem.valid.sum(dtype=torch.int32),
+        obs_dropped=setup.g.dropped,
+    )
+    return s.cameras, s.landmarks, stats
+
+
+def lm_solve(steps, problem: BAProblem, n_iterations, damping, huber_delta, max_obs_per_landmark):
+    """The LM solve as a ``graphs`` program: prologue, ``n_iterations``
+    iterations, epilogue. Returns (cameras, landmarks, BAStats)."""
+    _check_precision(problem.cameras)
+    setup = steps.stage(lm_prologue, problem, damping, huber_delta, max_obs_per_landmark)
+    steps.loop(n_iterations, lm_iteration, problem, setup, huber_delta)
+    return steps.stage(lm_epilogue, problem, setup)
+
+
 def bundle_adjust(
     problem: BAProblem,
     n_iterations: int = 10,
@@ -333,49 +417,16 @@ def bundle_adjust(
     huber_delta: float = 0.0,
     max_obs_per_landmark: int = 16,
 ) -> Tuple[BAProblem, BAStats]:
-    """Fixed-iteration damped Gauss-Newton BA on the problem's device.
+    """Fixed-iteration damped Gauss-Newton BA on the problem's device,
+    eagerly (``slam.sfm._jit_bundle_adjust`` replays it as CUDA graphs).
 
     ``huber_delta`` <= 0 selects plain least squares; > 0 enables Huber
     IRLS weights with that pixel threshold. Levenberg-Marquardt trust
-    control without host reads: a rejected step leaves the state
-    unchanged and inflates the damping 10x; an accepted step relaxes it
-    2x. ``max_obs_per_landmark`` bounds the grouped layout; observations
-    past it are dropped and counted in ``stats.obs_dropped``."""
-    _check_precision(problem.cameras)
-    hd = huber_delta if huber_delta > 0 else 1e12
-    l_n = problem.landmarks.shape[0]
-    c_n = problem.cameras.shape[0]
-    g = group_by_landmark(
-        problem.cam_idx, problem.lm_idx, problem.uv, problem.valid,
-        l_n, max_obs_per_landmark,
+    control without host reads (:func:`lm_iteration`).
+    ``max_obs_per_landmark`` bounds the grouped layout; observations past
+    it are dropped and counted in ``stats.obs_dropped``.
+    ``problem.fixed_cameras`` is an int or a 0-dim tensor."""
+    cameras, landmarks, stats = lm_solve(
+        EAGER, problem, n_iterations, damping, huber_delta, max_obs_per_landmark
     )
-    k = problem.k
-    cameras, landmarks = problem.cameras, problem.landmarks
-    lam = torch.full((), damping, dtype=cameras.dtype, device=cameras.device)
-    c_init = cost(problem)
-    # Accept/reject on the SAME (robust) objective the step minimizes; the
-    # cost of the state carried into the next iteration is the one just
-    # computed for it.
-    c0 = grouped_cost(cameras, landmarks, k, g, huber_delta)
-    segs = schur_segments(g, c_n)
-    for _ in range(n_iterations):
-        d_cam, d_lm = _gauss_newton_step(
-            cameras, landmarks, k, g, c_n, lam, hd, problem.fixed_cameras, segs
-        )
-        new_cams = cameras + d_cam
-        new_lms = landmarks + d_lm
-        c1 = grouped_cost(new_cams, new_lms, k, g, huber_delta)
-        accept = c1 < c0
-        cameras = torch.where(accept, new_cams, cameras)
-        landmarks = torch.where(accept, new_lms, landmarks)
-        c0 = torch.where(accept, c1, c0)
-        lam = torch.where(accept, lam * 0.5, lam * 10.0).clamp(1e-8, 1e6)
-
-    out = problem._replace(cameras=cameras, landmarks=landmarks)
-    stats = BAStats(
-        initial_cost=c_init,
-        final_cost=cost(out),
-        n_observations=problem.valid.sum(dtype=torch.int32),
-        obs_dropped=g.dropped,
-    )
-    return out, stats
+    return problem._replace(cameras=cameras, landmarks=landmarks), stats

@@ -6,7 +6,10 @@ damped Gauss-Newton on the residual log(T_ij_measured^-1 o T_i^-1 o T_j).
 Padded edge lists with weights (0 masks a padding edge); the [6N, 6N]
 normal system is dense, assembled with segment sums (``ba._add_rows``,
 the edges sorted once a solve) and solved with ``torch.linalg.solve_ex``.
-The iteration loop reads nothing on the host.
+The iteration loop reads nothing on the host. The solve is a ``graphs``
+program (``pg_solve``: prologue, one iteration written in place, run
+``n_iterations`` times, epilogue); ``optimize_pose_graph`` runs it
+eagerly, ``slam.sfm._jit_optimize_pose_graph`` as CUDA graphs.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..graphs import EAGER
 from .ba import _add_rows, _check_precision, _segments
 from .camera import compose, inverse, relative
 
@@ -25,7 +29,7 @@ class PoseGraph(NamedTuple):
     edge_j: torch.Tensor    # [E] int32
     rel_ij: torch.Tensor    # [E, 6] measured T_ij (x_j = T_ij(x_i))
     weight: torch.Tensor    # [E] f32 (0 masks a padding edge)
-    fixed: int = 1          # first N poses held fixed (gauge)
+    fixed: int = 1          # first N poses held fixed (gauge); int or 0-dim tensor
 
 
 def edge_residual(pose_i, pose_j, rel_ij) -> torch.Tensor:
@@ -116,30 +120,62 @@ def robust_edge_weights(g: PoseGraph, huber_delta) -> torch.Tensor:
     return torch.clamp(huber_delta / norm, max=1.0)
 
 
+class GraphSetup(NamedTuple):
+    """What :func:`pg_prologue` prepares: the edges' segment-sum indices
+    and the state an iteration writes in place (poses, damping)."""
+
+    segs: tuple
+    poses: torch.Tensor
+    lam: torch.Tensor
+
+
+def pg_prologue(g: PoseGraph, damping) -> GraphSetup:
+    poses = g.poses.clone()
+    lam = torch.full((), damping, dtype=poses.dtype, device=poses.device)
+    return GraphSetup(_edge_segments(g), poses, lam)
+
+
+def pg_iteration(g: PoseGraph, huber_delta, setup: GraphSetup) -> None:
+    """One robust damped Gauss-Newton step with its accept/reject, written
+    into ``setup`` in place (the JAX package's ``lax.fori_loop`` body)."""
+    poses, lam = setup.poses, setup.lam
+    gg = g._replace(poses=poses)
+    w = g.weight * robust_edge_weights(gg, huber_delta)
+    gw = gg._replace(weight=w)
+    new_poses = poses + _step(gw, lam, setup.segs)
+    c0 = graph_cost(gw)
+    c1 = graph_cost(gw._replace(poses=new_poses))
+    accept = c1 < c0
+    poses.copy_(torch.where(accept, new_poses, poses))
+    lam.copy_(torch.where(accept, lam * 0.5, lam * 10.0).clamp(1e-8, 1e6))
+
+
+def pg_epilogue(g: PoseGraph, setup: GraphSetup):
+    """(poses, final cost)."""
+    return setup.poses, graph_cost(g._replace(poses=setup.poses))
+
+
+def pg_solve(steps, g: PoseGraph, huber_delta, n_iterations, damping):
+    """The pose-graph solve as a ``graphs`` program: prologue,
+    ``n_iterations`` iterations, epilogue. Returns (poses, final cost)."""
+    _check_precision(g.poses)
+    setup = steps.stage(pg_prologue, g, damping)
+    steps.loop(n_iterations, pg_iteration, g, huber_delta, setup)
+    return steps.stage(pg_epilogue, g, setup)
+
+
 def optimize_pose_graph(
     g: PoseGraph,
     n_iterations: int = 20,
     damping: float = 1e-4,
     huber_delta=0.1,
 ) -> Tuple[PoseGraph, torch.Tensor]:
-    """Robust-LM pose-graph optimization on the graph's device; returns
-    (graph, final_cost). ``huber_delta`` is the residual norm (rad/units
-    mixed 6-vector) beyond which an edge is treated as an outlier and
-    IRLS-downweighted — scalar or per-edge [E] tensor; pass ``inf`` (per
-    edge or globally) for pure least squares."""
-    _check_precision(g.poses)
-    poses = g.poses
-    lam = torch.full((), damping, dtype=poses.dtype, device=poses.device)
-    segs = _edge_segments(g)
-    for _ in range(n_iterations):
-        gg = g._replace(poses=poses)
-        w = g.weight * robust_edge_weights(gg, huber_delta)
-        gw = gg._replace(weight=w)
-        new_poses = poses + _step(gw, lam, segs)
-        c0 = graph_cost(gw)
-        c1 = graph_cost(gw._replace(poses=new_poses))
-        accept = c1 < c0
-        poses = torch.where(accept, new_poses, poses)
-        lam = torch.where(accept, lam * 0.5, lam * 10.0).clamp(1e-8, 1e6)
-    out = g._replace(poses=poses)
-    return out, graph_cost(out)
+    """Robust-LM pose-graph optimization on the graph's device, eagerly
+    (``slam.sfm._jit_optimize_pose_graph`` replays it as CUDA graphs);
+    returns (graph, final_cost). ``huber_delta`` is the residual norm
+    (rad/units mixed 6-vector) beyond which an edge is treated as an
+    outlier and IRLS-downweighted — scalar or per-edge [E] tensor; pass
+    ``inf`` (per edge or globally) for pure least squares. ``g.fixed`` is
+    an int or a 0-dim tensor."""
+    poses, final = pg_solve(EAGER, g, huber_delta, n_iterations, damping)
+    return g._replace(poses=poses), final

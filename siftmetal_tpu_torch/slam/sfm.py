@@ -6,6 +6,13 @@ RANSAC against map landmarks, landmark growth by triangulation against
 the previous keyframe, culling, loop-closure detection, local and global
 Schur BA and pose-graph repair.
 
+On the card, BA and the pose graph replay CUDA graphs: one captured
+program a fill bucket and static arguments (``_jit_bundle_adjust``,
+``_jit_optimize_pose_graph``, the counterparts of the JAX package's
+module-level jits), the LM iteration captured once and replayed n times;
+the gauge is a device scalar, so a windowed BA replays its bucket's
+program for every window. On the CPU they run eagerly.
+
 The map's bookkeeping is a padded SoA of numpy arrays on the host with
 static budgets (cameras, landmarks, observations) and fill counters, as
 in the JAX package. Matching, RANSAC, PnP, triangulation, projection, BA
@@ -33,11 +40,41 @@ from ..device import resolve_device
 from ..geometry.ransac import find_fundamental
 from ..geometry.twoview import essential_from_fundamental, recover_pose, triangulate
 from ..match.matcher import match_bruteforce, match_guided
-from .ba import BAProblem, bundle_adjust, residuals
+from ..graphs import GraphCache
+from .ba import BAProblem, lm_solve, residuals
 from .camera import project, relative, rodrigues, so3_log
 from .pnp import pnp_ransac, pnp_refine
-from .pose_graph import PoseGraph
-from .pose_graph import optimize_pose_graph as _optimize_pose_graph
+from .pose_graph import PoseGraph, pg_solve
+
+# The counterparts of the JAX package's module-level jits: one captured
+# program a bucket shape and static arguments, kept for the process, as a
+# jit's compile cache is. Eager on the CPU.
+_BA_GRAPHS = GraphCache(lm_solve, "bundle_adjust")
+_POSE_GRAPH_GRAPHS = GraphCache(pg_solve, "optimize_pose_graph")
+
+
+def _jit_bundle_adjust(problem: BAProblem, n_iterations, huber_delta, damping=1e-4,
+                       max_obs_per_landmark=16):
+    """``SfmMap.bundle_adjust``'s solve: ``ba.bundle_adjust`` replayed from
+    CUDA graphs on the card. Static: the four scalar arguments; a 0-dim
+    tensor ``problem.fixed_cameras`` is an input, so every gauge (a
+    windowed BA's moves with each keyframe) replays the bucket's one
+    program."""
+    cameras, landmarks, stats = _BA_GRAPHS(
+        problem, n_iterations=n_iterations, damping=damping, huber_delta=huber_delta,
+        max_obs_per_landmark=max_obs_per_landmark,
+    )
+    return problem._replace(cameras=cameras, landmarks=landmarks), stats
+
+
+def _jit_optimize_pose_graph(g: PoseGraph, n_iterations, huber_delta=0.1, damping=1e-4):
+    """``SfmMap.optimize_pose_graph``'s solve: ``optimize_pose_graph``
+    replayed from CUDA graphs on the card, its iteration captured once and
+    replayed ``n_iterations`` times; a tensor ``huber_delta`` is an input."""
+    poses, final = _POSE_GRAPH_GRAPHS(
+        g, huber_delta, n_iterations=n_iterations, damping=damping
+    )
+    return g._replace(poses=poses), final
 
 
 def _np(a) -> np.ndarray:
@@ -854,6 +891,8 @@ class SfmMap:
         return [(j, i, self._relative(self.cameras[j], mdl)) for j, mdl in kept]
 
     def _problem(self, valid: np.ndarray, nc: int, nlm: int, no: int, fixed: int) -> BAProblem:
+        """The map's BA problem on its buckets; the gauge a 0-dim tensor on
+        the map's device."""
         return BAProblem(
             cameras=self._t(self.cameras[:nc]),
             landmarks=self._t(self.landmarks[:nlm]),
@@ -862,7 +901,7 @@ class SfmMap:
             lm_idx=self._t(self.obs_lm[:no]),
             uv=self._t(self.obs_uv[:no]),
             valid=self._t(valid),
-            fixed_cameras=fixed,
+            fixed_cameras=torch.full((), fixed, dtype=torch.int64, device=self.device),
         )
 
     def _fill(self):
@@ -895,9 +934,8 @@ class SfmMap:
             lm_in_window = np.zeros(nlm, dtype=bool)
             lm_in_window[self.obs_lm[: self.n_obs][in_window]] = True
             valid[: self.n_obs] &= lm_in_window[self.obs_lm[: self.n_obs]]
-        out, stats = bundle_adjust(
-            self._problem(valid, nc, nlm, no, fixed_cameras),
-            n_iterations=c.ba_iterations, huber_delta=c.ba_huber_delta,
+        out, stats = _jit_bundle_adjust(
+            self._problem(valid, nc, nlm, no, fixed_cameras), c.ba_iterations, c.ba_huber_delta,
         )
         self.cameras[:nc] = _np(out.cameras)
         self.landmarks[:nlm] = _np(out.landmarks)
@@ -916,6 +954,15 @@ class SfmMap:
         where a bare pair measures the CURRENT relative pose. Landmarks
         are re-anchored by a subsequent ``bundle_adjust()``. Returns the
         final cost."""
+        n = self.n_cameras
+        g, huber = self._pose_graph(loop_closures)
+        out, cost = _jit_optimize_pose_graph(g, n_iterations, huber)
+        self.cameras[:n] = _np(out.poses)[:n]
+        return float(cost)
+
+    def _pose_graph(self, loop_closures: Optional[list] = None):
+        """(PoseGraph on the fill buckets, per-edge Huber delta) of
+        :meth:`optimize_pose_graph`."""
         n = self.n_cameras
         assert n >= 2, "need at least two keyframes"
         ei = list(range(n - 1))
@@ -954,10 +1001,7 @@ class SfmMap:
             poses=self._t(poses), edge_i=self._t(edge_i), edge_j=self._t(edge_j),
             rel_ij=self._t(rel_ij), weight=self._t(weight), fixed=1,
         )
-        huber = torch.full((me,), 0.1, device=self.device)
-        out, cost = _optimize_pose_graph(g, n_iterations=n_iterations, huber_delta=huber)
-        self.cameras[:n] = _np(out.poses)[:n]
-        return float(cost)
+        return g, torch.full((me,), 0.1, device=self.device)
 
     def reprojection_rms(self) -> float:
         valid, nc, nlm, no = self._fill()

@@ -1308,23 +1308,25 @@ def test_nccl_one_rank_extractor_and_matcher_equal_one_device(one_rank_mesh, cud
 @pytest.mark.cuda
 def test_distributed_ba_makes_no_host_sync(one_rank_mesh, cuda_dev):
     """make_distributed_ba reads no value on the host in its LM loop (its
-    accept/reject is a torch.where on the all-reduced cost): it runs under
-    torch.cuda.set_sync_debug_mode("error") once its inputs lie on the
-    card, and matches bundle_adjust."""
+    accept/reject is a torch.where on the all-reduced cost): its eager
+    route and its replay run under torch.cuda.set_sync_debug_mode("error")
+    once its inputs lie on the card and its graphs are captured, give one
+    result, and match bundle_adjust."""
     from siftmetal_tpu_torch.parallel import make_distributed_ba, shard_ba_problem
     from siftmetal_tpu_torch.slam.ba import bundle_adjust
 
     problem = _ba_problem(cuda_dev)
     sharded = shard_ba_problem(problem, 1)
-    run = make_distributed_ba(one_rank_mesh, n_iterations=2, huber_delta=2.0)
-    run(sharded)                                          # warm-up: communicator, handles
-    torch.cuda.synchronize()
     run = make_distributed_ba(one_rank_mesh, n_iterations=4, huber_delta=2.0)
+    run(sharded)                              # warm-up and capture: communicator, handles
+    torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        cams, lms, (c0, c1) = run(sharded)
+        eager = run.eager(sharded)
+        cams, lms, (c0, c1) = run(sharded)   # a replay
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(eager[0], cams) and torch.equal(eager[1], lms)
     out, _ = bundle_adjust(problem, n_iterations=4, huber_delta=2.0,
                            max_obs_per_landmark=sharded.cam.shape[-1])
     assert float(c1) < float(c0)
@@ -1381,3 +1383,197 @@ def test_init_device_mesh_cuda_keeps_the_work_on_the_card(cuda_dev, backend):
         assert multihost.barrier() == 1.0
     finally:
         dist.destroy_process_group()
+
+
+# --- the solvers and the multi-device layer as CUDA graphs --------------------------
+
+
+def _leaves_equal(got, want):
+    from torch.utils._pytree import tree_leaves
+
+    from torch_bits import same_bits
+
+    a, b = tree_leaves(got), tree_leaves(want)
+    return len(a) == len(b) and all(
+        same_bits(x, y) if torch.is_tensor(x) else x == y for x, y in zip(a, b))
+
+
+def _gauge(fixed, dev):
+    return torch.full((), fixed, dtype=torch.int64, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cam, n_lm", [(6, 256), (16, 1024)])
+def test_bundle_adjust_replay_equals_eager_bit_for_bit(cuda_dev, n_cam, n_lm):
+    """SfmMap's BA solve (slam.sfm._jit_bundle_adjust) at two bucket
+    shapes: the first call (capture) and a later replay equal the eager
+    bundle_adjust in every output bit for bit; the replay plan is the
+    prologue, the iteration replayed n times, the epilogue."""
+    from siftmetal_tpu_torch.device import resolve_device
+    from siftmetal_tpu_torch.slam import sfm
+    from siftmetal_tpu_torch.slam.ba import bundle_adjust
+
+    resolve_device("cuda")
+    p = _ba_problem(cuda_dev, n_cam=n_cam, n_lm=n_lm)._replace(fixed_cameras=_gauge(2, cuda_dev))
+    first = sfm._jit_bundle_adjust(p, 8, 2.0)
+    want = bundle_adjust(p, n_iterations=8, huber_delta=2.0)
+    again = sfm._jit_bundle_adjust(p, 8, 2.0)
+    assert _leaves_equal(first, want) and _leaves_equal(again, want)
+    assert float(want[1].final_cost) < float(want[1].initial_cost)
+    key = sfm._BA_GRAPHS.key(p, n_iterations=8, damping=1e-4, huber_delta=2.0,
+                             max_obs_per_landmark=16)
+    assert [n for _, n in sfm._BA_GRAPHS.graphs[key].plan] == [1, 8, 1]
+
+
+@pytest.mark.cuda
+def test_windowed_bundle_adjust_replays_one_graph_per_bucket(cuda_dev):
+    """Windowed BA calls whose gauge (a device scalar) and valid mask move
+    with the window replay the bucket's one program, each equal to its
+    eager call bit for bit; another bucket captures one more."""
+    from siftmetal_tpu_torch.device import resolve_device
+    from siftmetal_tpu_torch.slam import sfm
+    from siftmetal_tpu_torch.slam.ba import bundle_adjust
+
+    resolve_device("cuda")
+    p = _ba_problem(cuda_dev, n_cam=12, n_lm=512)
+    n0 = len(sfm._BA_GRAPHS.graphs)
+    results = []
+    for fixed in (2, 5, 9):
+        q = p._replace(fixed_cameras=_gauge(fixed, cuda_dev), valid=p.cam_idx >= fixed - 1)
+        got = sfm._jit_bundle_adjust(q, 6, 2.0)
+        assert _leaves_equal(got, bundle_adjust(q, n_iterations=6, huber_delta=2.0))
+        results.append(got[0].cameras)
+    assert len(sfm._BA_GRAPHS.graphs) == n0 + 1
+    assert not torch.equal(results[0], results[2])
+    sfm._jit_bundle_adjust(_ba_problem(cuda_dev, n_cam=12, n_lm=1024), 6, 2.0)
+    assert len(sfm._BA_GRAPHS.graphs) == n0 + 2
+
+
+def _pose_ring(dev):
+    """scripts/bench_graph_solvers.py's ring: 52 poses with closures in
+    SfmMap's 64-pose, 64-edge buckets."""
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "scripts"))
+    from bench_graph_solvers import pose_ring
+
+    return pose_ring(dev)
+
+
+@pytest.mark.cuda
+def test_pose_graph_60_iterations_capture_one_iteration(cuda_dev):
+    """slam.sfm._jit_optimize_pose_graph at 60 iterations: one program of
+    three graphs, the iteration captured once and replayed 60 times;
+    equal to the eager optimize_pose_graph bit for bit, twice."""
+    from siftmetal_tpu_torch.device import resolve_device
+    from siftmetal_tpu_torch.slam import sfm
+    from siftmetal_tpu_torch.slam.pose_graph import optimize_pose_graph
+
+    resolve_device("cuda")
+    g, huber = _pose_ring(cuda_dev)
+    first = sfm._jit_optimize_pose_graph(g, 60, huber)
+    want = optimize_pose_graph(g, n_iterations=60, huber_delta=huber)
+    assert _leaves_equal(first, want) and _leaves_equal(sfm._jit_optimize_pose_graph(g, 60, huber), want)
+    key = sfm._POSE_GRAPH_GRAPHS.key(g, huber, n_iterations=60, damping=1e-4)
+    assert [n for _, n in sfm._POSE_GRAPH_GRAPHS.graphs[key].plan] == [1, 60, 1]
+
+
+@pytest.mark.cuda
+def test_parallel_replays_equal_eager_bit_for_bit(one_rank_mesh, cuda_dev):
+    """Over a one-rank NCCL mesh: the distributed BA, the sharded
+    extractor and the sharded matcher replay their graphs (one program
+    each, collectives inside) and equal their eager routes bit for bit."""
+    from siftmetal_tpu_torch.parallel import (
+        make_batch_extractor,
+        make_distributed_ba,
+        make_sharded_matcher,
+        shard_ba_problem,
+    )
+
+    sharded = shard_ba_problem(_ba_problem(cuda_dev), 1)
+    ba = make_distributed_ba(one_rank_mesh, n_iterations=5, huber_delta=2.0)
+    assert _leaves_equal(ba(sharded), ba.eager(sharded))
+    assert _leaves_equal(ba(sharded), ba.eager(sharded))
+    rng = np.random.default_rng(3)
+    frames = torch.from_numpy(rng.uniform(0, 1, (2, 96, 128)).astype(np.float32)).to(cuda_dev)
+    extract = make_batch_extractor(one_rank_mesh, 96, 128, CFG)
+    kb, db, cb = extract(frames)
+    assert _leaves_equal((kb, db, cb), extract.eager(frames))
+    match = make_sharded_matcher(one_rank_mesh)
+    tf, tv = db.features.reshape(-1, 128), db.valid.reshape(-1)
+    got = match(db.features[1], db.valid[1], tf, tv)
+    assert _leaves_equal(got, match.eager(db.features[1], db.valid[1], tf, tv))
+    assert int(got.valid.sum()) > 20
+    for run in (ba, extract, match):
+        assert len(run.graphs.graphs) == 1
+
+
+@pytest.mark.cuda
+def test_replay_dispatches_only_input_and_output_copies(cuda_dev):
+    """A replayed call of each solver dispatches no PyTorch op but one
+    copy into each static input and one clone of each output."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from siftmetal_tpu_torch.device import resolve_device
+    from siftmetal_tpu_torch.slam import sfm
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    resolve_device("cuda")
+    p = _ba_problem(cuda_dev)._replace(fixed_cameras=_gauge(2, cuda_dev))
+    g, huber = _pose_ring(cuda_dev)
+    # (call, its tensor arguments, its program's outputs: cameras,
+    # landmarks and four BAStats; poses and the cost)
+    calls = ((lambda: sfm._jit_bundle_adjust(p, 4, 2.0), p, 6),
+             (lambda: sfm._jit_optimize_pose_graph(g, 4, huber), (g, huber), 2))
+    for call, args, n_out in calls:
+        call()
+        with Ops() as ops:
+            out = call()
+        n_in = sum(torch.is_tensor(x) for x in tree_leaves(args))
+        assert sorted(set(ops.names)) == ["clone", "copy_"], ops.names
+        assert ops.names.count("copy_") == n_in and ops.names.count("clone") == n_out
+        assert all(t.is_cuda for t in tree_leaves(out) if torch.is_tensor(t))
+
+
+_FAILING_SOLVER_CAPTURE = """
+import pytest, torch
+from siftmetal_tpu_torch.graphs import GraphCache
+
+def reading(x):
+    y = x * 2
+    int(y.sum())                       # a host read: not capturable
+    return y
+
+cache = GraphCache(lambda steps, x: steps.stage(reading, x), "a reading program")
+x = torch.ones(8, device="cuda")
+with pytest.raises(RuntimeError, match="capturing a reading program"):
+    cache(x)
+assert cache.graphs == {}, cache.graphs
+print("raised")
+"""
+
+
+@pytest.mark.cuda
+def test_solver_capture_failure_raises(cuda_dev):
+    """A program that reads the card from the host cannot be captured:
+    GraphCache raises, keeps no program and runs no eager route instead
+    (in a child process: a failed capture leaves the allocator's capture
+    state of that process behind)."""
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", _FAILING_SOLVER_CAPTURE], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0 and out.stdout.strip().endswith("raised"), out.stderr[-4000:]

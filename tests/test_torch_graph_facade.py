@@ -16,12 +16,10 @@ read, so the pipeline must make none. Held here:
 """
 
 import pathlib
-import sys
 
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax.numpy as jnp
 
@@ -32,7 +30,7 @@ from siftmetal_tpu_torch.ops.kernels.detect import detect_candidates_plain
 from siftmetal_tpu_torch.sift import detect as PD
 from siftmetal_tpu_torch.sift.batched import build_pyramid_batch, extract_gray_batch
 from siftmetal_tpu_torch.utils.io import load_image
-from torch_bits import assert_same_bits
+from torch_bits import HostReads, assert_same_bits
 
 # Keep PyTorch's CPU pool small: the suite runs several test processes
 # side by side, and oversubscribed pools slow every one of them down.
@@ -40,40 +38,6 @@ torch.set_num_threads(2)
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
 LUMA = np.array([0.212639005871510, 0.715168678767756, 0.072192315360734], np.float32)
-PORT = str(pathlib.Path(PD.__file__).resolve().parents[1])
-
-# The ops that read a device value back to the host (bool(), int(),
-# .item(), nonzero's data-dependent size).
-HOST_READS = (
-    torch.ops.aten._local_scalar_dense,
-    torch.ops.aten.is_nonzero,
-    torch.ops.aten.item,
-    torch.ops.aten.nonzero,
-)
-
-
-class HostReads(TorchDispatchMode):
-    """Records every host read and the port's frames it was made from;
-    reads made inside a kernel's plain version (a function ``*_plain``)
-    are only counted."""
-
-    def __init__(self):
-        super().__init__()
-        self.outside = []
-        self.inside = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func.overloadpacket in HOST_READS:
-            frames, f = [], sys._getframe(1)
-            while f is not None:
-                if f.f_code.co_filename.startswith(PORT):
-                    frames.append((f.f_code.co_name, f"{f.f_code.co_filename}:{f.f_lineno}"))
-                f = f.f_back
-            if any(name.endswith("_plain") for name, _ in frames):
-                self.inside += 1
-            else:
-                self.outside.append((str(func), frames[:2]))
-        return func(*args, **(kwargs or {}))
 
 
 def _noise(b=2, h=120, w=160, seed=0):
