@@ -21,6 +21,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..sift.detect import compact_indices
+from ..utils.profiling import span
 from .twoview import take_row
 
 
@@ -121,12 +122,13 @@ def ransac(
 ) -> RansacResult:
     """Generic parallel RANSAC over padded [N, 2] correspondences with a
     ``valid`` [N] mask; ``generator`` (on the points' device) draws the
-    minimal samples."""
-    idx = _sample_indices(generator, n_hypotheses, sample_size, valid)
-    return ransac_from_indices(
-        idx, points_a, points_b, valid, solver, error_fn, sample_size,
-        inlier_threshold, refit,
-    )
+    minimal samples. Traced as the host span ``geometry``."""
+    with span("geometry"):
+        idx = _sample_indices(generator, n_hypotheses, sample_size, valid)
+        return ransac_from_indices(
+            idx, points_a, points_b, valid, solver, error_fn, sample_size,
+            inlier_threshold, refit,
+        )
 
 
 def find_homography(

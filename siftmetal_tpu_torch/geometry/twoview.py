@@ -19,6 +19,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils.profiling import span
+
 
 def take_row(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """``t[i]`` for a 0-dim index tensor, gathered on the device (plain
@@ -54,9 +56,12 @@ def _null_vector(a: torch.Tensor) -> torch.Tensor:
     """Right singular vector of the smallest singular value of [..., M, N]
     design matrices; its sign is arbitrary. Vh is complete without the
     full U once M >= N (the refit's 2K x 9 system would otherwise carry a
-    2K x 2K factor)."""
+    2K x 2K factor). The library checks its convergence flag on the host,
+    so the call waits for the device: the tracer's host span
+    ``twoview.svd``."""
     full = a.shape[-2] < a.shape[-1]
-    return torch.linalg.svd(a, full_matrices=full).Vh[..., -1, :]
+    with span("twoview.svd"):
+        return torch.linalg.svd(a, full_matrices=full).Vh[..., -1, :]
 
 
 def homography_from_points(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,7 @@ from typing import List, Tuple
 import torch
 
 from ..config import SiftConfig
+from ..graphs import EAGER
 from ..ops.image import decimate_2x
 from ..ops.kernels import pyramid as _oneshot
 from ..ops.kernels.blur import blur_cascade
@@ -38,11 +39,6 @@ from ..ops.kernels.patches import (
 from . import describe as _describe
 from . import detect as _detect
 from .pyramid import is_bf16, seed_image
-
-# Profiler ranges of the stages (read by chip_smoke.py's breakdown of an
-# eager call: a CUDA graph replay records none; free when no profiler
-# runs).
-_stage = torch.profiler.record_function
 
 
 def build_pyramid_batch(
@@ -85,21 +81,23 @@ def build_pyramid_batch(
 
 
 def extract_gray_batch(
-    grays: torch.Tensor, config: SiftConfig, n_octaves: int
+    grays: torch.Tensor, config: SiftConfig, n_octaves: int, steps=EAGER
 ):
     """Full SIFT on a [B, H, W] fp32 grayscale batch. Returns
-    (Keypoints, Descriptors, counters), every field with a leading [B]."""
-    with _stage("sift_pyramid"):
-        gaussians, dogs = build_pyramid_batch(grays, config, n_octaves)
-    with _stage("sift_detect"):
-        per_octave, counters = _detect.detect_all_octaves_batch(dogs, config)
-    counters = dict(counters)
-    with _stage("sift_describe"):
-        desc_rows, lane_overflow = _describe_octaves(
-            gaussians, dogs, per_octave, config
-        )
-    with _stage("sift_compact"):
-        return _compact_all(per_octave, desc_rows, lane_overflow, counters, config)
+    (Keypoints, Descriptors, counters), every field with a leading [B].
+
+    Its four stages are the named stages of a ``graphs`` program run by
+    ``steps`` (``sift.pyramid``, ``sift.detect``, ``sift.describe``,
+    ``sift.compact``): host spans of the tracer when eager, one graph a
+    stage in the facade's traced replay."""
+    gaussians, dogs = steps.stage(
+        build_pyramid_batch, grays, config, n_octaves, name="sift.pyramid")
+    per_octave, counters = steps.stage(
+        _detect.detect_all_octaves_batch, dogs, config, name="sift.detect")
+    desc_rows, lane_overflow = steps.stage(
+        _describe_octaves, gaussians, dogs, per_octave, config, name="sift.describe")
+    return steps.stage(_compact_all, per_octave, desc_rows, lane_overflow, dict(counters),
+                       config, name="sift.compact")
 
 
 def _describe_octaves(gaussians, dogs, per_octave, config: SiftConfig):

@@ -18,6 +18,10 @@ it (a profile of the replay counts its kernels:
 ``ops.kernels.device_launches``). A capture that fails raises. On the CPU
 the facade runs the pipeline eagerly; so does a direct call of
 ``extract_gray_batch`` on any device.
+
+Under the tracer (``utils/profiling.py``) a call is the device span
+``sift.extract`` (upload, replay and output copies); the replay then runs
+the program captured with its four stages timed (``graphs.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from ..config import DEFAULT_CONFIG, SiftConfig
 from ..device import resolve_device
 from ..graphs import GraphCache
 from ..ops.image import rgb_to_gray
+from ..utils.profiling import span
 from .detect import Keypoints
 
 
@@ -123,16 +128,19 @@ class SIFT:
 
     def extract(self, image):
         """[H, W] gray or [H, W, C] RGB -> (Keypoints, Descriptors, counters)."""
-        return _first_frame(self._run(self._to_gray(image, 2)[None]))
+        with span("sift.extract", device=self.device):
+            return _first_frame(self._run(self._to_gray(image, 2)[None]))
 
     def extract_batch(self, images):
         """[B, H, W] gray or [B, H, W, C] RGB -> batched results."""
-        return self._run(self._to_gray(images, 3))
+        with span("sift.extract", device=self.device):
+            return self._run(self._to_gray(images, 3))
 
     @property
     def _graphs(self) -> Dict[int, object]:
-        """The captured programs by batch size."""
-        return {key.tensors[0][0][0]: prog for key, prog in self._cache.graphs.items()}
+        """The captured programs by batch size (untraced)."""
+        return {key.tensors[0][0][0]: prog for key, prog in self._cache.graphs.items()
+                if not key.traced}
 
     def _run(self, grays: torch.Tensor):
         """``extract_gray_batch`` of a [B, H, W] batch on this instance's
@@ -144,4 +152,4 @@ class SIFT:
 def _extract_program(steps, frames, config, n_octaves):
     from .batched import extract_gray_batch
 
-    return steps.stage(extract_gray_batch, frames, config, n_octaves)
+    return extract_gray_batch(frames, config, n_octaves, steps)

@@ -1,7 +1,8 @@
 """The port's utilities (``siftmetal_tpu_torch/utils``: the IPOL text
-formats, the PNM writer, checkpoints, logging, profiling) against the JAX
-package's on the same inputs, and a guard that the port imports nothing
-of JAX."""
+formats, the PNM writer, checkpoints, logging) against the JAX package's
+on the same inputs, and a guard that the port imports nothing of JAX.
+The tracer of ``utils/profiling.py`` has its own tests,
+``tests/test_torch_tracing.py``."""
 
 import ast
 import dataclasses
@@ -197,7 +198,7 @@ def test_rotation_to_quaternion_matches_jax():
         np.testing.assert_array_equal(PC.rotation_to_quaternion(r), JC.rotation_to_quaternion(r))
 
 
-# --- logging and profiling -------------------------------------------------------------
+# --- logging ------------------------------------------------------------------------
 
 
 def test_logging_output_matches_jax(caplog):
@@ -251,26 +252,6 @@ def test_json_lines_format_matches_jax():
     assert p.pop("logger") == "siftmetal_tpu_torch.extract"
     assert j.pop("logger") == "siftmetal_tpu.extract"
     assert p == j
-
-
-def test_measure_accumulates_and_capture_writes_a_trace(tmp_path):
-    from siftmetal_tpu_torch.utils.profiling import capture, measure, reset_timings, timings
-
-    reset_timings()
-    with capture(str(tmp_path / "trace")):
-        for _ in range(2):
-            with measure("phase_x", log=True):
-                torch.ones(64).sum()
-    t = timings()
-    assert t["phase_x"]["count"] == 2 and t["phase_x"]["total_s"] > 0
-    assert t["phase_x"]["mean_ms"] == pytest.approx(500 * t["phase_x"]["total_s"])
-    trace = (tmp_path / "trace" / "trace.json").read_text()
-    assert "phase_x" in trace
-    with capture(str(tmp_path / "off"), enabled=False):
-        pass
-    assert not (tmp_path / "off").exists()
-    reset_timings()
-    assert timings() == {}
 
 
 # --- the port imports nothing of JAX ---------------------------------------------------
