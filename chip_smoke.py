@@ -367,6 +367,7 @@ def phase_kernels(peaks):
           f"{_ptxas_line(f'detect_kernelILb1ELi5ELi{KD.BAND_ROWS}E')}; "
           f"{_ptxas_line(f'detect_kernelILb0ELi5ELi{KD.BAND_ROWS}E')}", flush=True)
     _detect_batch(peaks, gray, cfg)
+    _refine_tail_row(reports, peaks, gray, cfg)
     interior = b * (d0.shape[1] - 2) * (H - 2) * (W - 2)
     n_soft = int(cd.n_soft.sum())
     out_bytes = sum(t.numel() * t.element_size() for t in
@@ -719,6 +720,67 @@ def _detect_batch(peaks, gray, cfg):
           flush=True)
     print("[kernel] detection band-height sweep (device ms of the kernel): " + "; ".join(line),
           flush=True)
+
+
+def _refine_tail_row(reports, peaks, gray, cfg):
+    """The refinement tail after detection (``refine_tail_kernel``, one
+    launch a call) against its plain version (``_tail_all_octaves``) on the
+    parity batch and on its first frame alone, both forms, every field and
+    counter bit for bit; its device time beside the byte bound (the
+    candidates read once, every output lane written once; the walk's DoG
+    reads, ~0.2 MB a frame, left out) and the plain tail's time on the
+    card. The row is the batch's, in the full form."""
+    import torch
+
+    from siftmetal_tpu_torch.config import SiftConfig
+    from siftmetal_tpu_torch.ops.kernels import LAUNCHES
+    from siftmetal_tpu_torch.ops.kernels import detect as KD
+    from siftmetal_tpu_torch.sift import detect as DT
+    from siftmetal_tpu_torch.sift.batched import build_pyramid_batch
+
+    rep = Report("refine_tail", "siftmetal_tpu_torch/csrc/detect.cu",
+                 "none: XLA glue (siftmetal_tpu/sift/detect.py detect_all_octaves_batch)", 0.0)
+    lean_cfg = SiftConfig(detect_slot_fields=False)
+    for frames in (gray, gray[:1]):
+        _, dogs = build_pyramid_batch(frames, cfg, cfg.num_octaves(*frames.shape[-2:]))
+        shapes = tuple(tuple(d.shape[-2:]) for d in dogs)
+        k_move = DT.mover_budget_all(cfg, shapes)
+        for c in (cfg, lean_cfg):
+            outs = KD.detect_candidates_octaves(dogs, 0.8 * c.dog_threshold, c.edge_threshold,
+                                                emit_fields=c.detect_slot_fields)
+            kernel = lambda: DT.refine_tail(outs, dogs, shapes, c, k_move)
+            plain = lambda: DT._tail_all_octaves(outs, dogs, shapes, c, k_move)
+            n0 = LAUNCHES["refine_tail"]
+            (kg, cg), (kw, cw) = kernel(), plain()
+            _require(LAUNCHES["refine_tail"] == n0 + 1, "refine_tail: not one launch a call")
+            bad = [k for k in cw if not _same_bits(cg[k], cw[k])] + [
+                f"{o}.{n}" for o, (a, p) in enumerate(zip(kg, kw))
+                for n, x, y in zip(a._fields, a, p) if not _same_bits(x, y)]
+            _require(not bad, f"refine_tail differs from the plain tail in {bad}")
+            lanes = sum(kp.cand_valid.numel() for kp in kg)
+            read = sum(t.numel() * t.element_size() for o in outs
+                       for t in (o.cand_col, o.slot_ok, *(o.cand_fields or ()),
+                                 *((o.cand_edge,) if o.cand_fields else ())))
+            written = sum(t.numel() * t.element_size() for kp in kg for t in kp)
+            dev = _device_ms(kernel, ("refine_tail_kernel",), 5)["refine_tail_kernel"]
+            plain_dev = _device_ms(plain, ("",), 3)[""]
+            queued, host, plain_host = _queued_ms(kernel), _time_ms(kernel, 10), _time_ms(plain, 3)
+            bound = (read + written) / peaks[0] * 1e3
+            form = "full" if c.detect_slot_fields else "lean"
+            print(f"[kernel] refine_tail {form} at {frames.shape[0]}x{frames.shape[1]}x"
+                  f"{frames.shape[2]} ({len(dogs)} octaves, {lanes} output lanes, k_move {k_move}, "
+                  f"movers {cw['n_movers'].tolist()}): equal to the plain tail in every field and "
+                  f"counter bit for bit; kernel {dev:.4f} ms of device time, queued {queued:.4f} ms, "
+                  f"host's clock {host:.4f} ms; bound {bound:.4f} ms (bytes: {read / 1e6:.2f} MB "
+                  f"read, {written / 1e6:.2f} MB written); plain tail {plain_host:.4f} ms on the "
+                  f"host's clock, {plain_dev:.4f} ms of device time", flush=True)
+            if c is cfg and frames is gray:
+                rep.row["ms"], rep.row["plain_ms"] = queued, plain_host
+                rep.bound(read + written, 0.0, peaks)
+    print(f"[kernel] refine_tail: {_ptxas_line('18refine_tail_kernelILb1ELi4')}; "
+          f"{_ptxas_line('18refine_tail_kernelILb0ELi4')}", flush=True)
+    rep.check(0.0)
+    reports[rep.row["name"]] = rep
 
 
 def _cascade_row(reports, peaks, first, cfg, o, bf16):
@@ -1245,7 +1307,7 @@ def _rotated_samples(d_args, valid, H, W, cfg):
 
 
 PARITY_KERNELS = ("seed_octave", "octave_oneshot", "blur_cascade", "detect_candidates",
-                  "orientation_hist", "descriptor_hist")
+                  "refine_tail", "orientation_hist", "descriptor_hist")
 # Pyramid launches of one 640x480 extract_batch: fused seed, one-shot
 # octaves 1-2, one cascade launch each for octaves 3-6 (parity); fused
 # seed, one-shot octave 1, cascades of octaves 2-5 (fast preset).
@@ -1255,8 +1317,8 @@ FAST_PYRAMID = {"seed_octave_bf16": 1, "octave_oneshot_bf16": 1, "blur_cascade_b
 
 
 # Detection launches of one extract_batch: every octave in one launch.
-PARITY_DETECT = {"detect_candidates": 1, "detect_candidates_lean": 0}
-LEAN_DETECT = {"detect_candidates": 0, "detect_candidates_lean": 1}
+PARITY_DETECT = {"detect_candidates": 1, "detect_candidates_lean": 0, "refine_tail": 1}
+LEAN_DETECT = {"detect_candidates": 0, "detect_candidates_lean": 1, "refine_tail": 1}
 # Orientation launches of one extract_batch (staged describe stage): every
 # octave in one launch.
 ONE_ORIENTATION = {"orientation_hist": 1}

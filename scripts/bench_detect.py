@@ -12,12 +12,13 @@ detection at octave 0 of the parity pyramid in both forms (full and lean),
 and over every octave of one parity batch and one FAST_BF16 batch: the
 tree's detection launches alone (``detect_candidates_octaves`` where the
 tree has it, else one ``detect_candidates`` an octave) and the tree's own
-``detect_all_octaves_batch`` (detection and the refinement tail). Each
-time is given three ways: device ms of the detection kernels under the
-profiler, ms per call with the calls queued behind a sleep kernel (device
-time of everything the call launches; not for the tail, which reads values
-on the host), and ms per call on the host's clock (CUDA events, 10 calls
-back to back). Beside each, the SHA-256 of
+``detect_all_octaves_batch`` (detection and the refinement tail), on the
+batch and on its first frame alone. Each time is given three ways: device
+ms under the profiler (of the detection kernels, of the tail kernel
+``refine_tail_kernel`` where the tree has it, and of every kernel the call
+launches), ms per call with the calls queued behind a sleep kernel (device
+time of everything the call launches), and ms per call on the host's
+clock (CUDA events, 10 calls back to back). Beside each, the SHA-256 of
 every output. Then one parity ``extract_batch`` under the profiler
 (chip_smoke's ``_profile``: device busy, device ops, idle share) and three
 windows of 5 calls. Writes ``<out>/bench_detect_<tag>.json`` (default
@@ -123,26 +124,31 @@ def main() -> int:
             d0 = dogs[0]
             thr = 0.8 * cfg.dog_threshold
             runs["octave 0 full 8x5x960x1280"] = (
-                lambda d0=d0, thr=thr, c=cfg: KD.detect_candidates(d0, thr, c.edge_threshold), True)
+                lambda d0=d0, thr=thr, c=cfg: KD.detect_candidates(d0, thr, c.edge_threshold))
             runs["octave 0 lean 8x5x960x1280"] = (
                 lambda d0=d0, thr=thr, c=cfg: KD.detect_candidates(d0, thr, c.edge_threshold,
-                                                                    emit_fields=False), True)
+                                                                    emit_fields=False))
         runs[f"{label} batch detection ({len(dogs)} octaves)"] = (
-            lambda dogs=dogs, c=cfg: detection(dogs, c), True)
+            lambda dogs=dogs, c=cfg: detection(dogs, c))
         runs[f"{label} batch detection, lean"] = (
-            lambda dogs=dogs, c=cfg: detection(dogs, c, False), True)
+            lambda dogs=dogs, c=cfg: detection(dogs, c, False))
         runs[f"{label} batch detect_all_octaves_batch"] = (
-            lambda dogs=dogs, c=cfg: DT.detect_all_octaves_batch(dogs, c), False)
-    for name, (fn, kernel_only) in runs.items():
+            lambda dogs=dogs, c=cfg: DT.detect_all_octaves_batch(dogs, c))
+        if label == "parity":
+            _, one = build_pyramid_batch(gray[:1], cfg, cfg.num_octaves(480, 640))
+            runs["parity 1x480x640 detect_all_octaves_batch"] = (
+                lambda dogs=one, c=cfg: DT.detect_all_octaves_batch(dogs, c))
+    for name, fn in runs.items():
         out["digests"][name] = _digest(*_tensors(fn()))
-        dev = chip_smoke._device_ms(fn, ("detect_kernel",), 5)["detect_kernel"]
-        # The tail reads values on the host, so its calls cannot queue.
-        queued = chip_smoke._queued_ms(fn) if kernel_only else None
+        dev = chip_smoke._device_ms(fn, ("detect_kernel", "refine_tail_kernel", ""), 5)
+        queued = chip_smoke._queued_ms(fn)
         host = chip_smoke._time_ms(fn, 10)
-        out["ms"][name] = {"device": dev, "queued": queued, "host": host}
-        q = "" if queued is None else f"queued {queued:.4f} ms, "
-        print(f"[detect {args.tag}] {name}: detection kernels {dev:.4f} ms of device time, "
-              f"{q}host's clock {host:.4f} ms; outputs {out['digests'][name]}", flush=True)
+        out["ms"][name] = {"device": dev["detect_kernel"], "tail_kernel": dev["refine_tail_kernel"],
+                           "all_kernels": dev[""], "queued": queued, "host": host}
+        print(f"[detect {args.tag}] {name}: detection kernels {dev['detect_kernel']:.4f} ms of "
+              f"device time, tail kernel {dev['refine_tail_kernel']:.4f}, every kernel "
+              f"{dev['']:.4f}; queued {queued:.4f} ms, host's clock {host:.4f} ms; outputs "
+              f"{out['digests'][name]}", flush=True)
     del runs
 
     sift = SIFT(480, 640)

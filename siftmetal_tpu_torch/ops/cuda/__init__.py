@@ -55,6 +55,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # emit_fields, cand_col, slot_ok, c_oi, c_oj, c_os, c_val, c_edge,
         # counts, stream
         "detect_octaves": [_P, _F, _F, _I] + [_P] * 9,
+        # table (int64 host table), reals (float32 host table), total,
+        # flags, ints, reals_out, counters, movers, stream
+        "refine_tail_octaves": [_P, _P, ctypes.c_longlong] + [_P] * 6,
     },
     "cascade": {
         # g0, table (the launch's int32 host table), taps (host float32),

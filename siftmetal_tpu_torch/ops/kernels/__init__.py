@@ -38,6 +38,7 @@ LAUNCHES: Dict[str, int] = {
     "descriptor_hist_banded": 0,
     "blur_cascade": 0,
     "blur_cascade_bf16": 0,
+    "refine_tail": 0,
 }
 
 
@@ -59,6 +60,7 @@ KERNEL_GROUPS: Dict[str, Tuple[str, ...]] = {
     r"\borient_desc_kernel<": ("orient_desc",),
     r"\bresident_orientation_kernel\b": ("orientation_hist_banded",),
     r"\bresident_descriptor_kernel<": ("descriptor_hist_banded",),
+    r"\brefine_tail_kernel<": ("refine_tail",),
 }
 
 

@@ -22,6 +22,13 @@ and the counters leave the kernel; the tail derives the Taylor step at the
 candidates it keeps. The outputs the two forms share are equal exactly.
 
 Bound on an H100: bytes, one read of the DoG stack. See csrc/detect.cu.
+
+:func:`refine_tail_octaves` launches the refinement tail that follows
+detection (``csrc/detect.cu`` ``refine_tail_kernel``, one cluster of
+blocks a frame):
+``sift/detect.py`` ``refine_tail`` calls it on CUDA tensors and keeps
+``_tail_all_octaves``, its plain version, for the CPU. It replaces no
+Pallas kernel (the JAX package's tail is XLA glue).
 """
 
 from __future__ import annotations
@@ -281,3 +288,95 @@ def detect_candidates(
         raise ValueError(f"detect_candidates: expected [B, S, H, W], got {tuple(dog.shape)}")
     return detect_candidates_octaves(
         [dog], soft_threshold, edge_threshold, slots, emit_fields, band_rows)[0]
+
+
+# The refinement tail's outputs (csrc/detect.cu refine_tail_kernel): the
+# planes of each kind in OctaveKeypoints' field order, and the counters.
+TAIL_FLAGS = ("cand_valid", "converged", "pass_hard", "pass_edge", "pass_border")
+TAIL_INTS = ("scale", "i", "j")
+TAIL_REALS = ("ofst_i", "ofst_j", "ofst_s", "x", "y", "sigma", "value")
+TAIL_COUNTERS = ("n_extrema", "n_soft", "n_interp", "n_hard", "n_edge", "n_border",
+                 "overflow", "n_movers")
+MAX_SIGMAS = 9       # csrc/detect.cu kMaxSigmas: Gaussian slices an octave
+TAIL_CLUSTER = 8     # csrc/detect.cu kTailCluster: blocks a frame
+
+
+def refine_tail_octaves(
+    outs: Sequence[Candidates],
+    dogs: Sequence[torch.Tensor],
+    grid: Sequence[int],
+    k_move: int,
+    deltas: Sequence[float],
+    sigmas: Sequence[Sequence[float]],
+    *,
+    max_offset: float,
+    dog_threshold: float,
+    edge_threshold: float,
+    iterations: int,
+    ratio: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The cross-octave refinement tail (``sift/detect.py``
+    ``_tail_all_octaves``) in one launch on CUDA tensors: the detection's
+    per-octave ``Candidates`` (the lean form when they carry no fields)
+    and DoGs -> (flags [5, total] bool, ints [3, total] int32, reals [7,
+    total] f32, counters [8, B] int32). Octave o's lanes [B, grid[o] +
+    k_move] start at element ``B * sum(grid[:o] + k_move)`` of each
+    plane; ``TAIL_*`` name the planes. Reads nothing on the host."""
+    name = "refine_tail"
+    if not dogs or len(outs) != len(dogs):
+        raise ValueError(f"{name}: {len(outs)} candidate sets for {len(dogs)} octaves")
+    if len(dogs) > MAX_OCTAVES:
+        raise ValueError(f"{name}: {len(dogs)} octaves, at most {MAX_OCTAVES} a launch")
+    b, s = dogs[0].shape[:2]
+    n_sig = len(sigmas[0])
+    if s not in SCALES or not s - 1 <= n_sig <= MAX_SIGMAS:
+        raise ValueError(f"{name}: {s} DoG planes and {n_sig} sigmas an octave")
+    fields = outs[0].cand_fields is not None
+    slots = outs[0].cand_col.shape[-1]
+    dev = dogs[0].device
+    rows, offset = [], 0
+    for o, (d, c) in enumerate(zip(dogs, outs)):
+        require(d, name)
+        if d.device != dev or tuple(d.shape[:2]) != (b, s):
+            raise ValueError(f"{name}: octave {o} is {tuple(d.shape)} on {d.device}")
+        h, w = d.shape[2:]
+        if tuple(c.cand_col.shape) != (b, s - 2, h - 2, slots) or (c.cand_fields is not None) != fields:
+            raise ValueError(f"{name}: octave {o} candidates {tuple(c.cand_col.shape)} do not fit "
+                             f"its DoG {tuple(d.shape)}")
+        cf = c.cand_fields or (None,) * 4
+        parts = [(c.cand_col, torch.int32), (c.slot_ok, torch.bool), *((f, torch.float32) for f in cf),
+                 (c.cand_edge, torch.bool), (c.n_raw, torch.int32), (c.n_soft, torch.int32),
+                 (c.n_row_dropped, torch.int32)]
+        for t, dtype in parts:
+            if t is not None and (t.device != dev or t.dtype != dtype or not t.is_contiguous()):
+                raise ValueError(f"{name}: octave {o} candidates must be contiguous on {dev} "
+                                 f"with the detection's dtypes")
+        ptr = lambda t: 0 if t is None else t.data_ptr()
+        rows.append([d.data_ptr(), ptr(c.cand_col), ptr(c.slot_ok), *map(ptr, cf),
+                     ptr(c.cand_edge), ptr(c.n_raw), ptr(c.n_soft), ptr(c.n_row_dropped),
+                     h, w, grid[o], offset])
+        offset += b * (grid[o] + k_move)
+    table = np.asarray([len(dogs), b, s, slots, k_move, iterations, n_sig, int(fields)]
+                       + [v for row in rows for v in row], np.int64)
+    r = edge_threshold
+    reals = np.asarray([max_offset, dog_threshold, (r + 1.0) ** 2 / r, ratio, *deltas]
+                       + [v for octave in sigmas for v in octave], np.float32)
+    # Three allocations: the flags, the reals, and one int32 buffer that
+    # holds the movers' scratch (an int2 list for each block of a frame's
+    # cluster, first, so that it is 8-byte aligned), the int planes and
+    # the counters.
+    flags = torch.empty((len(TAIL_FLAGS), offset), dtype=torch.bool, device=dev)
+    real = torch.empty((len(TAIL_REALS), offset), dtype=torch.float32, device=dev)
+    n_mov, n_int = 2 * TAIL_CLUSTER * b * k_move, len(TAIL_INTS) * offset
+    buf = torch.empty(n_mov + n_int + len(TAIL_COUNTERS) * b, dtype=torch.int32, device=dev)
+    movers, ints, counters = buf[:n_mov], buf[n_mov:n_mov + n_int], buf[n_mov + n_int:]
+    with _cuda.launch_on(dogs[0]) as stream:
+        code = _cuda.library("detect").refine_tail_octaves(
+            table.ctypes.data_as(ctypes.c_void_p), reals.ctypes.data_as(ctypes.c_void_p),
+            offset, flags.data_ptr(), ints.data_ptr(), real.data_ptr(), counters.data_ptr(),
+            movers.data_ptr(), stream,
+        )
+    _cuda.check(code, name)
+    LAUNCHES[name] += 1
+    return (flags, ints.view(len(TAIL_INTS), offset), real,
+            counters.view(len(TAIL_COUNTERS), b))

@@ -10,18 +10,29 @@ their Taylor step from 19-point DoG gathers. With
 only; the tail compacts each octave's slot grid to its candidate budget
 and derives the iteration-1 step from the same 19-point gather. Every
 array carries a leading frame axis [B, ...] where the JAX package vmapped
-over frames.
+over frames. On CUDA tensors :func:`refine_tail` runs the whole tail as
+one hand-written kernel (``csrc/detect.cu`` ``refine_tail_kernel``); the
+PyTorch tail stays as its plain version, the route on the CPU.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
 from ..config import SiftConfig
-from ..ops.kernels.detect import Candidates, detect_candidates_octaves, edge_ok, taylor_step
+from ..ops.kernels import use_kernel
+from ..ops.kernels.detect import (
+    TAIL_COUNTERS,
+    Candidates,
+    detect_candidates_octaves,
+    edge_ok,
+    refine_tail_octaves,
+    taylor_step,
+)
 
 
 class OctaveKeypoints(NamedTuple):
@@ -323,7 +334,47 @@ def detect_all_octaves_batch(
     )
     shapes = [tuple(dog.shape[-2:]) for dog in dogs]
     k_move = mover_budget_all(config, shapes)
-    return _tail_all_octaves(outs, dogs, tuple(shapes), config, k_move)
+    return refine_tail(outs, dogs, tuple(shapes), config, k_move)
+
+
+def refine_tail(
+    outs: Sequence[Candidates],
+    dogs: Sequence[torch.Tensor],
+    shapes: Tuple[Tuple[int, int], ...],
+    config: SiftConfig,
+    k_move: int,
+) -> Tuple[List[OctaveKeypoints], Dict[str, torch.Tensor]]:
+    """The cross-octave tail after detection: :func:`_tail_all_octaves`,
+    the plain version, on CPU tensors; one launch of ``csrc/detect.cu``
+    ``refine_tail_kernel`` on CUDA tensors (``refine_tail_octaves``, no
+    fallback), whose fields equal the plain version's bit for bit; raises
+    for any other device. The per-octave lists are views of the launch's
+    three output buffers."""
+    if not use_kernel(dogs[0], "refine_tail"):
+        return _tail_all_octaves(outs, dogs, shapes, config, k_move)
+    lean = not config.detect_slot_fields
+    grid = [extrema_candidate_budget(config, s) if lean else math.prod(out.cand_col.shape[1:])
+            for out, s in zip(outs, shapes)]
+    flags, ints, reals, counters = refine_tail_octaves(
+        outs, dogs, grid, k_move,
+        [config.octave_delta(o) for o in range(len(dogs))],
+        [config.octave_sigmas(o) for o in range(len(dogs))],
+        max_offset=config.max_interpolation_offset,
+        dog_threshold=config.dog_threshold,
+        edge_threshold=config.edge_threshold,
+        iterations=config.max_interpolation_iterations - 1,
+        ratio=2.0 ** (1.0 / config.n_scales_per_octave),
+    )
+    b = dogs[0].shape[0]
+    widths = [m + k_move for m in grid]
+
+    def per_octave(buf):
+        parts = buf.split([b * w for w in widths], dim=1)
+        return [p.view(buf.shape[0], b, w).unbind(0) for p, w in zip(parts, widths)]
+
+    kp_list = [OctaveKeypoints(*f, *n, *r)
+               for f, n, r in zip(per_octave(flags), per_octave(ints), per_octave(reals))]
+    return kp_list, dict(zip(TAIL_COUNTERS, counters.unbind(0)))
 
 
 def detect(

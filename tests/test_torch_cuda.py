@@ -14,7 +14,7 @@ import torch
 
 from siftmetal_tpu_torch.config import FAST_BF16_CONFIG, FAST_CONFIG, SiftConfig
 from siftmetal_tpu_torch.ops import gaussian as PG
-from siftmetal_tpu_torch.ops.kernels import LAUNCHES, device_launches, group_launches
+from siftmetal_tpu_torch.ops.kernels import LAUNCHES, group_launches
 from siftmetal_tpu_torch.ops.kernels import pyramid as PP
 from siftmetal_tpu_torch.ops.kernels.blur import (
     blur_cascade,
@@ -40,7 +40,7 @@ from siftmetal_tpu_torch.ops.kernels.patches import (
     prepare_patch_fields,
 )
 from siftmetal_tpu_torch.sift import describe as PDS
-from torch_bits import assert_same_bits
+from torch_bits import assert_same_bits, profiled_launches
 
 CFG = SiftConfig()
 FAST = FAST_CONFIG
@@ -969,25 +969,6 @@ def test_orientation_wraps_equal_the_old_expressions(cuda_dev):
         assert bool(((bins >= 0) & (bins < n_bins)).all())
 
 
-def _device_launches(fn):
-    """Launches of each wrapper group among the device kernels that a
-    call of ``fn`` ran, from torch.profiler (a graph replay runs no
-    wrapper, so LAUNCHES cannot see it): ``fn`` is profiled three times
-    and each group's count is the largest, since a profile loses a kernel
-    event now and then (about one call in 60 on the H100)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    counts = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-        counts.append(device_launches(names))
-    return {group: max(c[group] for c in counts) for group in counts[0]}
-
-
 @pytest.mark.cuda
 def test_one_orientation_launch_per_extract_batch(cuda_dev):
     """Parity and fast configurations: exactly one orientation launch per
@@ -1002,7 +983,7 @@ def test_one_orientation_launch_per_extract_batch(cuda_dev):
         sift = SIFT(120, 160, cfg, device=cuda_dev)
         sift.extract_batch(x)
         n0 = dict(LAUNCHES)
-        seen = _device_launches(lambda: sift.extract_batch(x))
+        seen = profiled_launches(lambda: sift.extract_batch(x))
         assert seen[("orientation_hist",)] == 1
         assert LAUNCHES == n0
 
@@ -1046,7 +1027,7 @@ def test_replay_equals_eager_bit_for_bit(cuda_dev, name):
     assert_same_bits(first, extract_gray_batch(xs[0], cfg, sift.n_octaves))
     n0 = dict(LAUNCHES)
     out = {}
-    replayed = _device_launches(lambda: out.setdefault("second", sift.extract_batch(xs[1])))
+    replayed = profiled_launches(lambda: out.setdefault("second", sift.extract_batch(xs[1])))
     second = out["second"]
     assert LAUNCHES == n0
     want = extract_gray_batch(xs[1], cfg, sift.n_octaves)

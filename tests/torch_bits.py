@@ -1,7 +1,7 @@
 """Helpers shared by the port's tests: bit-for-bit comparison of two
-extraction results (one route of ``extract_gray_batch`` against another)
-and a dispatch mode that records reads of a device value on the host
-(what a CUDA graph cannot hold)."""
+extraction results (one route of ``extract_gray_batch`` against another),
+a dispatch mode that records reads of a device value on the host (what a
+CUDA graph cannot hold) and the launches a profiler sees on the card."""
 
 import pathlib
 import sys
@@ -10,6 +10,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import siftmetal_tpu_torch
+from siftmetal_tpu_torch.ops.kernels import device_launches
 
 PORT = str(pathlib.Path(siftmetal_tpu_torch.__file__).resolve().parent)
 
@@ -64,3 +65,22 @@ def assert_same_bits(got, want):
         assert same_bits(a, b), name
     for key in cw:
         assert same_bits(cg[key], cw[key]), key
+
+
+def profiled_launches(fn):
+    """Launches of each wrapper group among the device kernels that a
+    call of ``fn`` ran, from torch.profiler (a graph replay runs no
+    wrapper, so LAUNCHES cannot see it): ``fn`` is profiled three times
+    and each group's count is the largest, since a profile loses a kernel
+    event now and then (about one call in 60 on the H100)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        counts.append(device_launches(names))
+    return {group: max(c[group] for c in counts) for group in counts[0]}
