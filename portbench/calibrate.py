@@ -1,15 +1,17 @@
 """Readings of a cell's compared numbers for its limits: the program on
-many seeds and the precision control on a few, in one process.
+many seeds, the precision control on a few, and a planted fault where the
+cell's traffic kind has one, in one process.
 
     python3 portbench/calibrate.py --workload ipol_vga.batch8 --seeds 12 --control-seeds 3
 
-The control is the nearest precision below the configuration's, in the
-program's place: for an extraction cell the port's own bf16 blur chain
-(``pyramid_dtype="bfloat16"``) at the cell's size, held against the fp32
-reference; for a pair cell the plain reference run with TF32 on. A pair
-cell's ``--fault-seeds`` run the port with every decision a rejection
-(its inlier count read as 0), the matches and models untouched. Prints
-one JSON line a run: side, seed, readings, the check's seconds.
+Each side is run by the generator of the cell's traffic kind
+(``portbench/harness/<kind>.py``, found by ``spec.generator``), whose
+``calibration_run(cell, seed, seconds, side, device)`` says what its
+control and its fault are: "control" is the nearest precision below the
+configuration's in the program's place, "fault" a fault planted in the
+timed path; a kind without a planted fault raises on ``--fault-seeds``.
+Prints one JSON line a run: side, seed, readings, the check's seconds,
+the calls or frames attempted.
 """
 
 from __future__ import annotations
@@ -27,35 +29,14 @@ common.set_cache_env()
 
 from portbench.harness import spec  # noqa: E402
 
-CONTROL_OVERRIDE = {"pyramid_dtype": "bfloat16"}
+SIDES = ("program", "control", "fault")
 
 
-def _rejecting(traffic):
-    """The port's verifier with every decision a rejection."""
-    import torch
-
-    from portbench.harness.pairs import PortVerifier
-
-    class Rejecting(PortVerifier):
-        def __call__(self, *args, **kwargs):
-            tgt, model, n_in = super().__call__(*args, **kwargs)
-            return tgt, model, torch.zeros_like(n_in)
-
-    return Rejecting(traffic)
-
-
-def readings(cell, seed: int, seconds: float, control: bool, device="cuda", fault: bool = False):
-    if cell.traffic["kind"] == "extract":
-        from portbench.harness.extract import run_cell
-
-        out = run_cell(cell, seed, seconds, 0, device, CONTROL_OVERRIDE if control else None)
-    else:
-        from portbench.harness.pairs import ReferenceVerifier, run_cell
-
-        verifier = (ReferenceVerifier(cell.traffic, control=True) if control
-                    else _rejecting(cell.traffic) if fault else None)
-        out = run_cell(cell, seed, seconds, 0, device, verifier)
-    side = "control" if control else "fault" if fault else "program"
+def readings(cell, seed: int, seconds: float, side: str, device="cuda"):
+    """One run of ``side`` of ``cell``, untraced, and its readings."""
+    if side not in SIDES:
+        raise ValueError(f"side {side!r} is none of {SIDES}")
+    out = spec.generator(cell.traffic["kind"]).calibration_run(cell, seed, seconds, side, device)
     return {"side": side, "seed": seed,
             "readings": out["readings"], "check_s": out["check_s"], "attempted": out["attempted"]}
 
@@ -71,11 +52,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     cell = spec.resolve(spec.load_benchmark(), args.workload)
     common.require_cards(cell.chips)
-    sides = [(False, False)] * args.seeds + [(True, False)] * args.control_seeds
-    sides += [(False, True)] * args.fault_seeds
-    for k, (control, fault) in enumerate(sides):
-        print(json.dumps(readings(cell, args.first_seed + k, args.seconds, control, fault=fault)),
-              flush=True)
+    sides = ["program"] * args.seeds + ["control"] * args.control_seeds + ["fault"] * args.fault_seeds
+    for k, side in enumerate(sides):
+        print(json.dumps(readings(cell, args.first_seed + k, args.seconds, side)), flush=True)
     return 0
 
 

@@ -8,6 +8,14 @@ keypoints, descriptors and counters are in host memory. Then a sample of
 frames drawn from the seed, each position of the batch among them, is
 extracted again by the plain reference and compared: the outputs as
 sets, the counters one by one.
+
+The generator's three functions (``spec.GENERATOR_FUNCTIONS``):
+:func:`run_cell` one run; :func:`cell_loop` the window loop for the
+program slice; :func:`calibration_run` one run of the program or of the
+precision control, the port's own bf16 blur chain (``CONTROL_OVERRIDE``)
+held against the fp32 reference. This kind has no planted fault: its
+faults are planted under the program by
+``portbench/tests/test_portbench_faults.py``.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from ..reference import compare
 from ..reference import sift as ref_sift
 from .common import percentile, tf32
 from .frames import procedural_frames
+from .program import Loop
 from .trace import Profiled, Trace
 
 KP_OUT = ("valid", "octave", "x", "y", "sigma")
@@ -31,6 +40,9 @@ KP_OUT = ("valid", "octave", "x", "y", "sigma")
 REFERENCE_CHUNK = 1024
 REFERENCE_BLOCK = 4
 DESC_OUT = ("valid", "octave", "x", "y", "sigma", "theta", "features")
+# The precision control: the nearest precision below the configuration's
+# float32 blur chain, in the program's place.
+CONTROL_OVERRIDE = {"pyramid_dtype": "bfloat16"}
 
 
 def sift_config(cell_config: Dict, override: Optional[Dict] = None):
@@ -257,3 +269,24 @@ def run_cell(cell, seed: int, seconds: float, traced_calls: int, device,
         "measured": {"frames_per_s": frames / window_s,
                      "frame_ms_p95": 1e3 * percentile(latencies, 95.0)},
     }
+
+
+def cell_loop(cell, seed: int, device) -> Loop:
+    """The run's closed loop from a set-up of its own, with no frame
+    sampled for the check: a warm-up call, the window, the program freed."""
+    ex = ExtractRun(cell, seed, device)
+    ex.sampled = []
+
+    def window(seconds: float):
+        calls, frames, _, wall_s, _ = ex.window(seconds)
+        return calls, frames, wall_s
+
+    return Loop(lambda: (ex._call(ex._frames(0)), ex._sync()), window, ex.free_program)
+
+
+def calibration_run(cell, seed: int, seconds: float, side: str, device) -> Dict:
+    """One untraced run of ``side``: "program", or "control" with
+    ``CONTROL_OVERRIDE``; "fault" raises, since this kind plants none."""
+    if side == "fault":
+        raise ValueError(f"{cell.name}: an extraction cell has no planted fault to calibrate against")
+    return run_cell(cell, seed, seconds, 0, device, CONTROL_OVERRIDE if side == "control" else None)

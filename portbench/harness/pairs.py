@@ -13,6 +13,13 @@ for the call, the host reads ``n_inliers`` and decides. Then a sample of
 calls drawn from the seed is verified again by the plain reference with
 the same samples and compared: the matches, the decision, and the
 homography where both sides accept.
+
+The generator's three functions (``spec.GENERATOR_FUNCTIONS``):
+:func:`run_cell` one run; :func:`cell_loop` the window loop for the
+program slice; :func:`calibration_run` one run of the program, of the
+precision control (the plain reference with TF32 on, in the program's
+place) or of the planted fault (the port with every decision a
+rejection, its inlier count read as 0, the matches and models untouched).
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from ..reference import verify as ref_verify
 from .common import tf32
 from .extract import REFERENCE_CHUNK
 from .frames import procedural_frames
+from .program import Loop
 from .trace import Profiled, Trace
 from .warp import views, warp
 
@@ -112,6 +120,15 @@ class ReferenceVerifier:
         with tf32(self.control):
             v = ref_verify.verify(qf, tf, qv, tv, qxy, txy, gen, self.thr, self.hyp, self.inl)
         return v.target_idx, v.model, torch.tensor(v.n_inliers)
+
+
+class RejectingVerifier(PortVerifier):
+    """The planted fault: the port's verifier with every decision a
+    rejection."""
+
+    def __call__(self, *args, **kwargs):
+        tgt, model, n_in = super().__call__(*args, **kwargs)
+        return tgt, model, torch.zeros_like(n_in)
 
 
 class PairsRun:
@@ -222,3 +239,25 @@ def run_cell(cell, seed: int, seconds: float, traced_calls: int, device, verifie
             "attempted": n_window, "failed": 0, "memory": memory,
             "trace": trace, "readings": readings,
             "measured": {"pairs_per_s": n_window / window_s}}
+
+
+def cell_loop(cell, seed: int, device) -> Loop:
+    """The run's closed loop from a set-up of its own, no result kept: a
+    warm-up call, the window."""
+    pr = PairsRun(cell, seed, device, REFERENCE_CHUNK)
+
+    def window(seconds: float):
+        pr.results.clear()
+        calls, wall_s, _ = pr.window(seconds)
+        return calls, calls, wall_s
+
+    return Loop(lambda: pr._call(0, keep=False), window, lambda: None)
+
+
+def calibration_run(cell, seed: int, seconds: float, side: str, device) -> Dict:
+    """One untraced run of ``side``: "program", "control" (the reference
+    with TF32 on in the program's place) or "fault" (every decision a
+    rejection)."""
+    verifier = (ReferenceVerifier(cell.traffic, control=True) if side == "control"
+                else RejectingVerifier(cell.traffic) if side == "fault" else None)
+    return run_cell(cell, seed, seconds, 0, device, verifier)

@@ -1,10 +1,15 @@
-"""The program slice of a traced run: the cell's own closed loop
-(``ExtractRun.window`` or ``PairsRun.window``, its check's sampling off)
-for ``SLICE_SECONDS`` with the port's tracer on (``siftmetal_tpu_torch.
-utils.profiling``) and no profiler, after one warm-up call under the
-tracer that captures the traced program. What the ``program_span``
-metrics of the extraction stages, the facade's copies and idle share, and
-the pair path's wait and dispatch read.
+"""The program slice of a traced run: the cell's own closed loop for
+``SLICE_SECONDS`` with the port's tracer on (``siftmetal_tpu_torch.utils.
+profiling``) and no profiler, after one warm-up call under the tracer
+that captures the traced program. What the ``program_span`` metrics
+read: today the extraction stages, the facade's copies and idle share,
+and the pair path's wait and dispatch.
+
+The loop is the generator's: :func:`cell_loop` finds the cell's traffic
+kind's module, ``portbench/harness/<kind>.py`` (``spec.generator``), and
+takes its ``cell_loop(cell, seed, device)``, a :class:`Loop` over the
+run's own window with nothing kept for the check. A new kind's slice
+needs no edit here.
 
 The slice is made on the first reader's request (:func:`of`), once a run,
 in a child process of its own (``python3 -m portbench.harness.program
@@ -116,30 +121,9 @@ class Loop(NamedTuple):
 
 
 def cell_loop(cell, seed: int, device) -> Loop:
-    """The loop of ``cell`` from a set-up of its own, with no frame or pair
-    kept for a check."""
-    if cell.traffic["kind"] == "extract":
-        from .extract import ExtractRun
-
-        ex = ExtractRun(cell, seed, device)
-        ex.sampled = []
-
-        def window(seconds: float):
-            calls, frames, _, wall_s, _ = ex.window(seconds)
-            return calls, frames, wall_s
-
-        return Loop(lambda: (ex._call(ex._frames(0)), ex._sync()), window, ex.free_program)
-    from .extract import REFERENCE_CHUNK
-    from .pairs import PairsRun
-
-    pr = PairsRun(cell, seed, device, REFERENCE_CHUNK)
-
-    def window(seconds: float):
-        pr.results.clear()
-        calls, wall_s, _ = pr.window(seconds)
-        return calls, calls, wall_s
-
-    return Loop(lambda: pr._call(0, keep=False), window, lambda: None)
+    """The loop of ``cell`` from a set-up of its own, with nothing kept for
+    a check: its traffic kind's generator's ``cell_loop``."""
+    return spec.generator(cell.traffic["kind"]).cell_loop(cell, seed, device)
 
 
 def traced(loop: Loop, seconds: float) -> Slice:

@@ -1,9 +1,11 @@
 """A cell as ``BENCHMARK.json`` names it, resolved to its files by name:
 ``configs[].file`` for the deployment, ``traffic/<traffic>.json`` for the
-mix, ``metrics/<name>.py`` for each per-layer metric."""
+mix, ``harness/<kind>.py`` for the generator of the mix's ``kind``,
+``metrics/<name>.py`` for each per-layer metric."""
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import pathlib
@@ -13,6 +15,13 @@ from .common import BENCH_DIR, ROOT
 
 TRAFFIC_DIR = BENCH_DIR / "traffic"
 METRICS_DIR = BENCH_DIR / "metrics"
+HARNESS_DIR = BENCH_DIR / "harness"
+# What a traffic kind's generator module defines: ``run_cell(cell, seed,
+# seconds, traced_calls, device)`` one run; ``cell_loop(cell, seed,
+# device)`` the run's window loop as a ``program.Loop``, for the program
+# slice; ``calibration_run(cell, seed, seconds, side, device)`` one run
+# of ``side`` ("program", "control" or "fault") for the limits.
+GENERATOR_FUNCTIONS = ("run_cell", "cell_loop", "calibration_run")
 
 
 class Cell(NamedTuple):
@@ -49,6 +58,26 @@ def resolve(bench: Dict, workload: str, root: pathlib.Path = ROOT) -> Cell:
     names = [m["name"] for m in e2e]
     layer = [m for m in bench["per_layer"] if _reported(m, workload, names)]
     return Cell(workload, int(w["chips"]), config, traffic, e2e, layer)
+
+
+def generator(kind: str):
+    """The generator of traffic kind ``kind``: the module
+    ``portbench/harness/<kind>.py``, with the functions of
+    ``GENERATOR_FUNCTIONS``. A new kind is a new file."""
+    path = (HARNESS_DIR / f"{kind}.py").relative_to(ROOT)
+    module_name = f"{__package__}.{kind}"
+    if not kind.isidentifier():
+        raise LookupError(f"traffic kind {kind!r} is not a module name: no generator {path}")
+    try:
+        module = importlib.import_module(module_name)
+    except ModuleNotFoundError as err:
+        if err.name != module_name:
+            raise
+        raise LookupError(f"no generator for traffic kind {kind!r}: {path} does not exist") from None
+    missing = [f for f in GENERATOR_FUNCTIONS if not callable(getattr(module, f, None))]
+    if missing:
+        raise LookupError(f"{path}, the generator of traffic kind {kind!r}, lacks {', '.join(missing)}")
+    return module
 
 
 def metric_path(name: str) -> pathlib.Path:

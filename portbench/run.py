@@ -2,10 +2,11 @@
 
     python3 portbench/run.py --workload ipol_vga.batch8 --seed 7 --seconds 10 --trace 0
 
-The cell, its configuration, its traffic mix and its per-layer metrics
-are found by name from ``BENCHMARK.json`` (``portbench/configs``,
-``portbench/traffic``, ``portbench/metrics``). A run makes its inputs
-from ``--seed``, warms the shapes its traffic uses, measures for
+The cell, its configuration, its traffic mix, the mix's generator and
+its per-layer metrics are found by name from ``BENCHMARK.json``
+(``portbench/configs``, ``portbench/traffic``,
+``portbench/harness/<kind>.py``, ``portbench/metrics``). A run makes its
+inputs from ``--seed``, warms the shapes its traffic uses, measures for
 ``--seconds``, checks what the window produced against the plain
 reference in ``portbench/reference`` and prints, as the last line of
 standard output, ``{"correct", "attempted", "failed", "metrics",
@@ -22,7 +23,6 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
-import importlib  # noqa: E402
 import math  # noqa: E402
 import pathlib  # noqa: E402
 import sys  # noqa: E402
@@ -34,12 +34,6 @@ from portbench.harness import common  # noqa: E402
 common.set_cache_env()
 
 from portbench.harness import spec  # noqa: E402
-
-
-def _runner(kind: str):
-    """``run_cell`` of the traffic kind's generator,
-    ``portbench/harness/<kind>.py`` (a new kind is a new file)."""
-    return importlib.import_module(f"portbench.harness.{kind}").run_cell
 
 
 def run(workload: str, seed: int, seconds: float, trace: bool, device="cuda", cell=None,
@@ -55,7 +49,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device="cuda", ce
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     traced = int(cell.traffic["traced_calls"]) if trace else 0
-    out = _runner(cell.traffic["kind"])(cell, seed, seconds, traced, device, **run_args)
+    out = spec.generator(cell.traffic["kind"]).run_cell(cell, seed, seconds, traced, device, **run_args)
     lines = [f"card: {common.card_line() if device == 'cuda' else 'cpu'}"]
     setup_s = out["t_window"] - t_start
     if trace:

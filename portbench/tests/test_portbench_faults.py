@@ -11,7 +11,7 @@ import torch
 from portbench import run as bench_run
 from portbench.harness import pairs as P
 from portbench.harness.extract import sample_frames
-from portbench.tests.conftest import SMALL, small_cell
+from portbench.tests.conftest import cells_of_kind, small_cell
 
 SEED = 2 ** 31 + 7
 
@@ -29,8 +29,9 @@ def _extract_run(name, monkeypatch, fault):
     if fault is not None:
         monkeypatch.setattr(SIFT, "_run", broken)
     # As few sampled frames as a batch has positions: the draw covers each.
-    traffic = dict(SMALL[name], check_frames=max(SMALL[name].get("batch", 1), 2))
-    fields, _ = bench_run.run(name, SEED, 0.3, False, device="cpu", cell=small_cell(name, **traffic),
+    cell = small_cell(name)
+    cell = small_cell(name, check_frames=max(int(cell.traffic["batch"]), 2))
+    fields, _ = bench_run.run(name, SEED, 0.3, False, device="cpu", cell=cell,
                               t_start=time.perf_counter())
     return fields["correct"]
 
@@ -63,13 +64,13 @@ def _unchanged(kps, descs, counters, prev):
     return out
 
 
-@pytest.mark.parametrize("name", ["ipol_vga.batch8", "ipol_vga.stream1"])
+@pytest.mark.parametrize("name", cells_of_kind("extract"))
 def test_extract_sound_run_is_correct(name, monkeypatch):
     assert _extract_run(name, monkeypatch, None) is True
 
 
 @pytest.mark.parametrize("fault", [_half_batch, _altered, _counters, _unchanged], ids=lambda f: f.__name__[1:])
-@pytest.mark.parametrize("name", ["ipol_vga.batch8", "ipol_vga.stream1"])
+@pytest.mark.parametrize("name", cells_of_kind("extract"))
 def test_extract_fault_is_caught(name, fault, monkeypatch):
     assert _extract_run(name, monkeypatch, fault) is False
 
@@ -101,7 +102,7 @@ class _Broken(P.PortVerifier):
 
 def _pairs_run(fault):
     name = "ipol_vga.pairs"
-    cell = small_cell(name, **dict(SMALL[name], accept_min_inliers=8, check_pairs=20))
+    cell = small_cell(name, accept_min_inliers=8, check_pairs=20)
     verifier = None if fault is None else _Broken(cell.traffic, fault)
     fields, _ = bench_run.run(name, SEED, 0.5, False, device="cpu", cell=cell,
                               t_start=time.perf_counter(), verifier=verifier)

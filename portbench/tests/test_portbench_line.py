@@ -11,11 +11,11 @@ import torch
 
 from portbench import run as bench_run
 from portbench.harness import common
-from portbench.tests.conftest import SMALL, ROOT, small_cell
+from portbench.tests.conftest import ROOT, WORKLOADS, small_cell
 
 
 @pytest.mark.parametrize("trace", [False, True], ids=["trace0", "trace1"])
-@pytest.mark.parametrize("name", sorted(SMALL))
+@pytest.mark.parametrize("name", WORKLOADS)
 def test_line_keys(name, trace, monkeypatch):
     if trace:
         # The CPU has no device trace: the readers get one of plain ops.
@@ -24,7 +24,7 @@ def test_line_keys(name, trace, monkeypatch):
         monkeypatch.setattr(T.Profiled, "__enter__", lambda self: setattr(self, "t0", time.perf_counter()) or self)
         monkeypatch.setattr(T.Profiled, "__exit__", lambda self, *e: setattr(self, "window_s", time.perf_counter() - self.t0))
         monkeypatch.setattr(T.Profiled, "ops", lambda self: ([T.Op("kernel", 0.0, 10.0)], [T.Op("host", 0.0, 20.0)]))
-    cell = small_cell(name, **SMALL[name])
+    cell = small_cell(name)
     fields, lines = bench_run.run(name, 2 ** 31 + 101, 0.3, trace, device="cpu", cell=cell,
                                   t_start=time.perf_counter())
     line = json.loads(common.result_line(**fields))

@@ -4,6 +4,7 @@ and its JSON form, the guards (no tracer or no cell named: no slice; a
 capture after the warm-up: raised; a child that fails: raised with its
 errors), and on a card the traced replay against the untraced one."""
 
+import functools
 import math
 import sys
 
@@ -12,7 +13,7 @@ import torch
 
 from portbench.harness import program, spec
 from portbench.harness.trace import Trace
-from portbench.tests.conftest import SMALL, small_cell
+from portbench.tests.conftest import WORKLOADS, cells_of_kind, small_cell
 from siftmetal_tpu_torch.utils.profiling import Span
 
 STAGES = ["sift.pyramid", "sift.detect", "sift.describe", "sift.compact"]
@@ -125,27 +126,45 @@ def test_no_slice_for_another_cell_or_a_program_without_the_tracer(monkeypatch):
     assert program.of(Trace([], 1.0, 1, 1, {}, {"config": cell.config})) is None
 
 
-@pytest.mark.parametrize("name", sorted(SMALL))
+@functools.cache
+def _small_slice(name):
+    """The program slice of the small cell ``name`` on the CPU, made once
+    a test process for the generic and the kind's tests."""
+    return program.run_slice(small_cell(name), 2 ** 31 + 17, "cpu", seconds=1e-3)
+
+
+@pytest.mark.parametrize("name", WORKLOADS)
 def test_slice_of_each_small_cell_on_the_cpu(name):
-    cell = small_cell(name, **SMALL[name])
-    sl = program.run_slice(cell, 2 ** 31 + 17, "cpu", seconds=1e-3)
-    n = sl.calls
-    assert n >= 1 and sl.items == n * int(cell.traffic.get("batch", 1))
-    assert sl.counters == {} and sl.wall_s > 0.0
+    sl = _small_slice(name)
+    assert 1 <= sl.calls <= sl.items
+    assert "graphs.captures" not in sl.counters and sl.wall_s > 0.0
     assert program.from_json(program.to_json(sl)) == sl
+    for s in sl.spans:
+        assert 0 <= s.call < len(sl.spans) and (s.parent is None or s.parent < s.id)
+
+
+@pytest.mark.parametrize("name", cells_of_kind("extract"))
+def test_extract_slice_spans(name):
+    sl = _small_slice(name)
+    n = sl.calls
+    assert sl.items == n * int(small_cell(name).traffic["batch"]) and sl.counters == {}
+    tops = [s for s in sl.spans if s.parent is None]
+    assert [s.name for s in tops] == ["sift.extract"] * n
+    for top in tops:
+        assert [s.name for s in sl.spans if s.parent == top.id] == STAGES
+    # The CPU has no device times: the device readers read nothing.
+    assert all(_read(m, _trace(sl)) is None for m in EXTRACT)
+
+
+@pytest.mark.parametrize("name", cells_of_kind("pairs"))
+def test_pair_slice_spans(name):
+    sl = _small_slice(name)
+    n = sl.calls
+    assert sl.items == n and sl.counters == {}
+    assert [s.name for s in sl.spans] == ["geometry", "twoview.svd", "twoview.svd"] * n
     tr = _trace(sl)
-    names = [s.name for s in sl.spans]
-    if name.endswith("pairs"):
-        assert names == ["geometry", "twoview.svd", "twoview.svd"] * n
-        for m in PAIRS:
-            assert math.isfinite(_read(m, tr)) and _read(m, tr) >= 0.0
-    else:
-        tops = [s for s in sl.spans if s.parent is None]
-        assert [s.name for s in tops] == ["sift.extract"] * n
-        for top in tops:
-            assert [s.name for s in sl.spans if s.parent == top.id] == STAGES
-        # The CPU has no device times: the device readers read nothing.
-        assert all(_read(m, tr) is None for m in EXTRACT)
+    for m in PAIRS:
+        assert math.isfinite(_read(m, tr)) and _read(m, tr) >= 0.0
 
 
 def test_a_capture_after_the_warm_up_raises():

@@ -2,12 +2,14 @@
 format rules."""
 
 import json
+import pathlib
 import re
 
 import pytest
 
 from portbench.harness import spec
 from portbench.harness.common import BENCH_DIR, ROOT
+from portbench.tests import conftest
 
 BENCH = spec.load_benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -23,11 +25,17 @@ def test_top_level_keys():
     assert len(json.dumps(BENCH)) <= 64 * 1024
 
 
-@pytest.mark.parametrize("w", BENCH["workloads"], ids=lambda w: w["name"])
-def test_cell_resolves(w):
-    cell = spec.resolve(BENCH, w["name"])
+def check_cell(w, cell):
+    """What every cell holds, whatever its traffic kind: its kind's
+    generator module under ``portbench/harness/`` with the generator's
+    functions, a small file for the CPU tests, its metrics and limits."""
+    gen = spec.generator(cell.traffic["kind"])
+    assert pathlib.Path(gen.__file__).resolve() == spec.HARNESS_DIR / f"{cell.traffic['kind']}.py"
+    for name in spec.GENERATOR_FUNCTIONS:
+        assert callable(getattr(gen, name, None)), name
+    small = json.loads(conftest.small_path(w["name"]).read_text())
+    assert set(small) <= {"traffic", "config"}
     assert cell.chips == 1
-    assert cell.traffic["kind"] in ("extract", "pairs")
     assert cell.config["name"] == w["config"]
     e2e = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2
@@ -36,6 +44,11 @@ def test_cell_resolves(w):
         assert m["moves"] in e2e
     assert set(cell.traffic["limits"]), "every cell compares numbers against limits"
     assert len(w["why"]) <= 200 and NAME.match(w["name"]) and NAME.match(w["traffic"])
+
+
+@pytest.mark.parametrize("w", BENCH["workloads"], ids=lambda w: w["name"])
+def test_cell_resolves(w):
+    check_cell(w, spec.resolve(BENCH, w["name"]))
 
 
 @pytest.mark.parametrize("m", BENCH["per_layer"], ids=lambda m: m["name"])
