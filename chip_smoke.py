@@ -57,7 +57,7 @@ Phases, in order; any failure exits non-zero and prints no result:
  6. sfm: bundle_adjust at 256 cameras / 65,536 landmarks / 196,608
     observations (tests/test_slam.py's mapping-size gates, ms per call,
     peak memory, device busy and idle share), then SfmMap's solve of it
-    (slam.sfm._jit_bundle_adjust, CUDA graphs) against the eager call:
+    (slam.sfm.replayed_bundle_adjust, CUDA graphs) against the eager call:
     bits, capture seconds, memory kept, ms in turns, one profiled call of
     each (as for every program below); examples/video_sfm_torch.py's
     scene at 480x640 rendered on the CPU (the same bits every run),
@@ -2101,9 +2101,9 @@ def _sfm_mapping_ba(dev, smi_line):
     print("[sfm] bundle_adjust most device time: " + "; ".join(
         f"{name[:44]} {ms:.3f} ms x{c}" for name, (ms, c) in top), flush=True)
     _eager_vs_replay(
-        "sfm", "mapping-size BA replayed as SfmMap runs it (slam.sfm._jit_bundle_adjust, M=4, "
+        "sfm", "mapping-size BA replayed as SfmMap runs it (slam.sfm.replayed_bundle_adjust, M=4, "
                "3 iterations)",
-        run, lambda: sfm._jit_bundle_adjust(problem, 3, 0.0, max_obs_per_landmark=4),
+        run, lambda: sfm.replayed_bundle_adjust(problem, 3, 0.0, max_obs_per_landmark=4),
         sfm._BA_GRAPHS, smi_line)
 
 
@@ -2183,7 +2183,7 @@ def _sfm_video(reports, dev, smi_line):
         "sfm", f"the video map's global BA ({nc} / {nlm} / {no} camera, landmark and observation "
                f"buckets, {cfg.ba_iterations} Huber iterations)",
         lambda: bundle_adjust(problem, n_iterations=cfg.ba_iterations, huber_delta=cfg.ba_huber_delta),
-        lambda: sfm._jit_bundle_adjust(problem, cfg.ba_iterations, cfg.ba_huber_delta),
+        lambda: sfm.replayed_bundle_adjust(problem, cfg.ba_iterations, cfg.ba_huber_delta),
         sfm._BA_GRAPHS, smi_line)
 
 

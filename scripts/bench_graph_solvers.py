@@ -11,7 +11,7 @@ memory it keeps reserved, the bits of both (equal or the script fails),
 ms a call in turns (eager, replay, replay, eager) and one profiled call
 of each. Parts (all by default):
 
-  ba        slam.sfm._jit_bundle_adjust against slam.ba.bundle_adjust at
+  ba        slam.sfm.replayed_bundle_adjust against slam.ba.bundle_adjust at
             two bucket shapes (8 Huber iterations), then windowed calls
             with two gauges (device scalars) on one program;
   mapping   the same at mapping size (256 cameras, 65,536 landmarks,
@@ -109,14 +109,14 @@ def part_ba(dev, smi):
         _eager_vs_replay(
             "ba", f"bundle_adjust {n_cam} cameras / {n_lm} landmarks, 8 Huber iterations",
             lambda: bundle_adjust(p, n_iterations=8, huber_delta=2.0),
-            lambda: sfm._jit_bundle_adjust(p, 8, 2.0), sfm._BA_GRAPHS, smi)
+            lambda: sfm.replayed_bundle_adjust(p, 8, 2.0), sfm._BA_GRAPHS, smi)
     before = len(sfm._BA_GRAPHS.graphs)
     p = _ba_scene(dev, 16, 1024)
     outs = []
     for fixed in (3, 9):
         q = p._replace(fixed_cameras=torch.full((), fixed, dtype=torch.int64, device=dev),
                        valid=p.valid & (p.cam_idx >= fixed - 1))
-        got = sfm._jit_bundle_adjust(q, 8, 2.0)
+        got = sfm.replayed_bundle_adjust(q, 8, 2.0)
         want = bundle_adjust(q, n_iterations=8, huber_delta=2.0)
         _require(torch.equal(got[0].cameras, want[0].cameras)
                  and torch.equal(got[0].landmarks, want[0].landmarks),
@@ -140,7 +140,7 @@ def part_mapping(dev, smi):
         "mapping", "bundle_adjust 256 cameras / 65536 landmarks / 196608 observations, M=4, "
                    "3 iterations",
         lambda: bundle_adjust(p, n_iterations=3, max_obs_per_landmark=4),
-        lambda: sfm._jit_bundle_adjust(p, 3, 0.0, max_obs_per_landmark=4), sfm._BA_GRAPHS, smi)
+        lambda: sfm.replayed_bundle_adjust(p, 3, 0.0, max_obs_per_landmark=4), sfm._BA_GRAPHS, smi)
 
 
 def part_pose(dev, smi):
@@ -166,7 +166,7 @@ def part_sync(dev, smi):
 
     p = _ba_scene(dev, 8, 256)
     g, huber = pose_ring(dev)
-    runs = (lambda: sfm._jit_bundle_adjust(p, 4, 2.0),
+    runs = (lambda: sfm.replayed_bundle_adjust(p, 4, 2.0),
             lambda: sfm._jit_optimize_pose_graph(g, 4, huber))
     for run in runs:
         run()

@@ -6,10 +6,11 @@ A *program* is a function ``program(steps, *args, **static)`` that runs
 its work through ``steps``: ``steps.stage(fn, *a)`` runs one piece and
 returns its result, ``steps.loop(n, body, *a)`` runs ``body`` n times
 (the body writes its carried state in place, as a ``lax.fori_loop`` body
-returns it). A stage may carry a name (``name=``): the tracer
-(``utils/profiling.py``) times it. :data:`EAGER` runs them as plain
-Python calls, each named stage in a host span; that is the program on
-the CPU and in a direct call on any device.
+returns it). A stage or a loop may carry a name (``name=``): the tracer
+(``utils/profiling.py``) times it, a loop each pass of its body.
+:data:`EAGER` runs them as plain Python calls, each named stage and each
+pass of a named loop in a host span; that is the program on the CPU and
+in a direct call on any device.
 
 :class:`GraphCache` runs a program on a CUDA device as graphs. Its key is
 the shapes, dtypes and device of the tensor leaves of ``args``, the other
@@ -23,12 +24,13 @@ tensors into the static inputs, replays the graphs in order (a loop's
 graph n times) and returns fresh copies of the outputs. A capture that
 fails raises; nothing falls back to eager.
 
-The key holds the tracer's state too, for a program with named stages
+The key holds the tracer's state too, for a program with named steps
 (learnt at its first capture). A call with the tracer on runs the program
 captured with each named stage in a graph of its own, replayed inside a
-device span of the stage's name (timing events between graphs); with the
-tracer off the program holds no event and no split. A program without a
-named stage has one form, which serves both.
+device span of the stage's name, and each replay of a named loop's graph
+inside a span of the loop's name (timing events between graphs); with
+the tracer off the program holds no event and no split. A program
+without a named stage or loop has one form, which serves both.
 
 The graphs of one cache share one pool: a call replays one key's graphs
 from the first to the last, so a later key's captures may reuse what an
@@ -55,9 +57,13 @@ class Steps:
         with span(name):
             return fn(*args)
 
-    def loop(self, n: int, body: Callable, *args) -> None:
+    def loop(self, n: int, body: Callable, *args, name: Optional[str] = None) -> None:
         for _ in range(n):
-            body(*args)
+            if name is None:
+                body(*args)
+            else:
+                with span(name):
+                    body(*args)
 
 
 EAGER = Steps()
@@ -67,7 +73,7 @@ class _WarmUp(Steps):
     """Every stage once and every loop body once (at most): what a capture
     needs to have run before it."""
 
-    def loop(self, n: int, body: Callable, *args) -> None:
+    def loop(self, n: int, body: Callable, *args, name: Optional[str] = None) -> None:
         if n:
             body(*args)
 
@@ -75,10 +81,11 @@ class _WarmUp(Steps):
 class _Capture(Steps):
     """Captures each stage, and each loop body once, into its own graph in
     ``pool``; ``plan`` lists (graph, replays) in the order they run and
-    ``names`` each graph's stage name (None for a graph of no named
-    stage). Untraced, a run of consecutive named stages is one graph,
-    open from the first to the next other step or the program's end (the
-    context's exit). ``named``: whether a stage carried a name."""
+    ``names`` each graph's stage or loop name (None for a graph of no
+    named step, and for every graph of an untraced capture). Untraced, a
+    run of consecutive named stages is one graph, open from the first to
+    the next other step or the program's end (the context's exit).
+    ``named``: whether a stage or a loop carried a name."""
 
     def __init__(self, pool, traced: bool):
         self.pool = pool
@@ -117,11 +124,12 @@ class _Capture(Steps):
         self._add(graph, 1, name)
         return out
 
-    def loop(self, n: int, body: Callable, *args) -> None:
+    def loop(self, n: int, body: Callable, *args, name: Optional[str] = None) -> None:
+        self.named = self.named or name is not None
         self._end(None, None, None)
         if n:
             graph, _ = self._graph(body, args)
-            self._add(graph, n)
+            self._add(graph, n, name if self.traced else None)
 
     def _end(self, *exc) -> None:
         """Ends the open capture of a run of named stages, if any."""
@@ -155,8 +163,8 @@ class Key(NamedTuple):
 
 class Program(NamedTuple):
     """One key's captured program: its graphs and replay counts in order,
-    each graph's stage name (None but in a traced program), the tensors
-    it reads and the outputs it writes."""
+    each graph's stage or loop name (None but in a traced program), the
+    tensors it reads and the outputs it writes."""
 
     plan: Tuple
     names: Tuple
@@ -180,7 +188,7 @@ class GraphCache:
     eagerly when the tensors of ``args`` lie on the CPU, else by replaying
     the key's graphs (captured on its first call). ``what`` names the
     program in the error of a failed capture. ``named``: whether the
-    program has a named stage (None until its first capture)."""
+    program has a named stage or loop (None until its first capture)."""
 
     def __init__(self, program: Callable, what: str):
         self.program = program
@@ -218,8 +226,9 @@ class GraphCache:
                 if name is None:
                     _replay(graph, n)
                 else:
-                    with span(name, device=dev):
-                        _replay(graph, n)
+                    for _ in range(n):
+                        with span(name, device=dev):
+                            graph.replay()
             return pytree.tree_map(_clone, prog.outputs)
 
     def eager(self, *args, **static):

@@ -4,14 +4,17 @@ Port of ``siftmetal_tpu/parallel/distributed_ba.py`` on
 ``torch.distributed``. Landmark blocks (Hll, b_l, the slot-level coupling
 blocks and the back-substitution) are independent in the landmark index,
 so each rank owns a contiguous landmark shard with its observations
-GROUPED BY LANDMARK ([L/D, M] slots, the layout of ``slam/ba.py``). The
-reduced camera system S = Hcc - sum_l W_l Hll_l^-1 W_l^T and its right-hand
-side are formed locally from observed camera pairs and summed over the
-ranks; every rank then solves the small replicated [6C, 6C] system and
-back-substitutes its own landmarks. Per iteration the only communication
-is one all-reduce each of Hcc, the cross term, the right-hand side (all
-float64, as ``slam/ba.py`` assembles them) and the cost: O(C^2) numbers,
-independent of L.
+GROUPED BY LANDMARK ([L/D, M] slots, the layout of ``slam/ba.py``'s
+``group_by_landmark``), solved as ``slam/ba.py`` solves one device's
+(``slot_obs``, ``pair_pieces``): the reduced camera system S = Hcc -
+sum_l W_l Hll_l^-1 W_l^T and its right-hand side are formed locally over
+the shard's list of same-landmark observation pairs (as long as the
+largest shard's count, which ``shard_ba_problem`` takes on the host) and
+summed over the ranks; every rank then solves the small replicated
+[6C, 6C] system and back-substitutes its own landmarks. Per iteration
+the only communication is one all-reduce each of Hcc, the cross term,
+the right-hand side (all float64, as ``slam/ba.py`` assembles them) and
+the cost: O(C^2) numbers, independent of L.
 
 The accept/reject decision comes from the all-reduced cost, which every
 rank holds bit for bit, and stays a ``torch.where`` on the device: nothing
@@ -39,10 +42,11 @@ from ..slam.ba import (
     LMSetup,
     LMState,
     _check_precision,
-    finish_step,
     grouped_cost,
-    schur_pieces,
+    pair_pieces,
+    pair_step,
     schur_segments,
+    slot_obs,
 )
 from .extraction import _check_inputs, _routes, all_gather_rows
 from .multihost import rank_device
@@ -60,6 +64,7 @@ class ShardedBA(NamedTuple):
     uv: torch.Tensor         # [D, L/D, M, 2]
     valid: torch.Tensor      # [D, L/D, M] bool
     fixed_cameras: torch.Tensor  # [1] int32
+    max_pairs: int               # same-landmark pairs of the shard that has the most
 
 
 def _np(t) -> np.ndarray:
@@ -75,9 +80,10 @@ def shard_ba_problem(
     observations by local landmark (on the host, with numpy). A landmark's
     slots take its valid observations in observation order; past M
     (default: the largest degree, rounded up to a multiple of 2) they are
-    dropped and the count is logged as a warning. The tensors keep the
-    problem's device, ``fixed_cameras`` (an int or a 0-dim tensor in
-    ``problem``) too."""
+    dropped and the count is logged as a warning. ``max_pairs`` is the
+    most same-landmark pairs of valid slots a shard holds: the length of
+    every rank's pair list. The tensors keep the problem's device,
+    ``fixed_cameras`` (an int or a 0-dim tensor in ``problem``) too."""
     l_n = problem.landmarks.shape[0]
     if l_n % n_devices:
         raise ValueError(f"{l_n} landmarks do not split over {n_devices} devices")
@@ -112,6 +118,8 @@ def shard_ba_problem(
     cam_g[l, s] = cam_idx[o]
     uv_g[l, s] = uv[o]
     val_g[l, s] = True
+    v = val_g.sum(1).astype(np.int64)
+    shard_pairs = (v * (v + 1) // 2).reshape(n_devices, per).sum(1)
     if n_dropped:
         logging.getLogger(__name__).warning(
             "shard_ba_problem: dropped %d observations past %d slots", n_dropped, m,
@@ -127,6 +135,7 @@ def shard_ba_problem(
         uv=t(uv_g.reshape(n_devices, per, m, 2)),
         valid=t(val_g.reshape(n_devices, per, m)),
         fixed_cameras=t(np.array([int(problem.fixed_cameras)], np.int32)),
+        max_pairs=int(shard_pairs.max()),
     )
 
 
@@ -152,25 +161,26 @@ def make_distributed_ba(
         dist.all_reduce(t, group=group)
         return t
 
-    def prologue(cams, lms, k, cam, uv, valid):
+    def prologue(cams, lms, k, cam, uv, valid, max_pairs):
         _check_precision(cams)
-        g = GroupedObs(cam=cam, uv=uv, valid=valid,
-                       dropped=torch.zeros((), dtype=torch.int32, device=cam.device))
+        g = GroupedObs(cam=None, uv=None, valid=None,
+                       dropped=torch.zeros((), dtype=torch.int32, device=cam.device),
+                       flat=slot_obs(cam, uv, valid))
         cams, lms = cams.clone(), lms.clone()
         lam = torch.full((), damping, dtype=cams.dtype, device=cams.device)
         c_init = psum(grouped_cost(cams, lms, k, g, huber_delta))
         state = LMState(cams, lms, c_init.clone(), lam)
-        return LMSetup(g, schur_segments(g, cams.shape[0]), state, c_init)
+        return LMSetup(g, schur_segments(g, cams.shape[0], max_pairs), state, c_init)
 
     def iteration(k, fixed, setup):
         s, g = setup.state, setup.g
         c_n = s.cameras.shape[0]
-        hcc, cross, rhs, hll_inv, G, b_l = schur_pieces(
+        hcc, cross, rhs, hll_inv, G, b_l = pair_pieces(
             s.cameras, s.landmarks, k, g, c_n, s.lam, hd, fixed, setup.segs
         )
         # ONE all-reduce each for the reduced system (O(C^2), not O(L)).
-        d_cam, d_lm = finish_step(
-            psum(hcc), psum(cross), psum(rhs), hll_inv, G, b_l, g.cam, c_n, s.lam, fixed,
+        d_cam, d_lm = pair_step(
+            psum(hcc), psum(cross), psum(rhs), hll_inv, G, b_l, g, c_n, s.lam, fixed,
         )
         new_c = s.cameras + d_cam.to(s.cameras.dtype)
         new_l = s.landmarks + d_lm.to(s.landmarks.dtype)
@@ -186,8 +196,8 @@ def make_distributed_ba(
         s = setup.state
         return s.cameras, all_gather_rows(group, [s.landmarks])[0], (setup.c_init, s.c0)
 
-    def solve(steps, cams, lms, k, cam, uv, valid, fixed):
-        setup = steps.stage(prologue, cams, lms, k, cam, uv, valid)
+    def solve(steps, cams, lms, k, cam, uv, valid, fixed, max_pairs):
+        setup = steps.stage(prologue, cams, lms, k, cam, uv, valid, max_pairs)
         steps.loop(n_iterations, iteration, k, fixed, setup)
         return steps.stage(epilogue, setup)
 
@@ -198,12 +208,12 @@ def make_distributed_ba(
             raise ValueError(
                 f"a problem sharded {sharded.landmarks.shape[0]} ways on a mesh of {world}"
             )
-        _check_inputs(dev, "the problem", *sharded)
+        _check_inputs(dev, "the problem", *sharded[:-1])
         r = mesh.get_local_rank(axis)
         cams, lms_all, costs = route(
             sharded.cameras.to(dev), sharded.landmarks[r].to(dev), sharded.k.to(dev),
             sharded.cam[r].to(dev), sharded.uv[r].to(dev), sharded.valid[r].to(dev),
-            sharded.fixed_cameras.to(dev).reshape(()),
+            sharded.fixed_cameras.to(dev).reshape(()), max_pairs=sharded.max_pairs,
         )
         return cams, lms_all.reshape(sharded.landmarks.shape), costs
 

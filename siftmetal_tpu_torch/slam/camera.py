@@ -2,9 +2,10 @@
 
 Port of ``siftmetal_tpu/slam/camera.py``. Cameras are 6-vectors
 [axis-angle rotation (3), translation (3)] mapping WORLD -> CAMERA:
-x_cam = R(w) @ x_world + t. Pixels are (u, v) = (col, row). Every
-function takes leading batch dimensions ([..., 6] cameras, [..., 3]
-points) that broadcast against each other.
+x_cam = R(w) @ x_world + t. Pixels are (u, v) = (col, row). BAL's
+cameras (:func:`project_bal`) append a focal length and two radial
+terms to those six. Every function takes leading batch dimensions
+([..., 6] cameras, [..., 3] points) that broadcast against each other.
 """
 
 from __future__ import annotations
@@ -87,6 +88,22 @@ def project(cam: torch.Tensor, k: torch.Tensor, x: torch.Tensor) -> torch.Tensor
     z = p[..., 2:]
     z = torch.where(z.abs() > 1e-9, z, torch.full_like(z, 1e-9))
     return ((p / z) @ k.mT)[..., :2]
+
+
+def project_bal(cam: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """World points [..., 3] -> pixels [..., 2] through BAL's camera
+    [..., 9] (Agarwal et al., "Bundle Adjustment in the Large", ECCV
+    2010): axis-angle rotation, translation, focal length f and radial
+    terms k1, k2. P = R X + t, p = -P / P_z (the camera looks down -z),
+    pixel = f (1 + k1 |p|^2 + k2 |p|^4) p, the origin at the image
+    centre."""
+    p = transform(cam[..., :6], x)
+    z = p[..., 2:]
+    z = torch.where(z.abs() > 1e-9, z, torch.full_like(z, 1e-9))
+    p = -p[..., :2] / z
+    r2 = (p * p).sum(-1, keepdim=True)
+    f, k1, k2 = cam[..., 6:7], cam[..., 7:8], cam[..., 8:9]
+    return f * (1.0 + r2 * (k1 + k2 * r2)) * p
 
 
 def compose(cam_a: torch.Tensor, cam_b: torch.Tensor) -> torch.Tensor:

@@ -7,9 +7,10 @@ the previous keyframe, culling, loop-closure detection, local and global
 Schur BA and pose-graph repair.
 
 On the card, BA and the pose graph replay CUDA graphs: one captured
-program a fill bucket and static arguments (``_jit_bundle_adjust``,
-``_jit_optimize_pose_graph``, the counterparts of the JAX package's
-module-level jits), the LM iteration captured once and replayed n times;
+program a fill bucket and static arguments (``replayed_bundle_adjust``,
+public, for a caller without a map too, and ``_jit_optimize_pose_graph``,
+the counterparts of the JAX package's module-level jits), the LM
+iteration captured once and replayed n times;
 the gauge is a device scalar, so a windowed BA replays its bucket's
 program for every window. On the CPU they run eagerly.
 
@@ -41,7 +42,8 @@ from ..geometry.ransac import find_fundamental
 from ..geometry.twoview import essential_from_fundamental, recover_pose, triangulate
 from ..match.matcher import match_bruteforce, match_guided
 from ..graphs import GraphCache
-from .ba import BAProblem, lm_solve, residuals
+from ..utils import profiling
+from .ba import BAProblem, landmark_pairs, lm_solve, residuals
 from .camera import project, relative, rodrigues, so3_log
 from .pnp import pnp_ransac, pnp_refine
 from .pose_graph import PoseGraph, pg_solve
@@ -53,17 +55,26 @@ _BA_GRAPHS = GraphCache(lm_solve, "bundle_adjust")
 _POSE_GRAPH_GRAPHS = GraphCache(pg_solve, "optimize_pose_graph")
 
 
-def _jit_bundle_adjust(problem: BAProblem, n_iterations, huber_delta, damping=1e-4,
-                       max_obs_per_landmark=16):
+# Observations kept a landmark in the map's bundle adjustments.
+BA_MAX_OBS_PER_LANDMARK = 16
+
+
+def replayed_bundle_adjust(problem: BAProblem, n_iterations, huber_delta, damping=1e-4,
+                           max_obs_per_landmark=BA_MAX_OBS_PER_LANDMARK, max_pairs=None):
     """``SfmMap.bundle_adjust``'s solve: ``ba.bundle_adjust`` replayed from
-    CUDA graphs on the card. Static: the four scalar arguments; a 0-dim
-    tensor ``problem.fixed_cameras`` is an input, so every gauge (a
-    windowed BA's moves with each keyframe) replays the bucket's one
-    program."""
-    cameras, landmarks, stats = _BA_GRAPHS(
-        problem, n_iterations=n_iterations, damping=damping, huber_delta=huber_delta,
-        max_obs_per_landmark=max_obs_per_landmark,
-    )
+    CUDA graphs on the card (eager on the CPU). Static: the scalar
+    arguments; a 0-dim tensor ``problem.fixed_cameras`` is an input, so
+    every gauge (a windowed BA's moves with each keyframe) replays the
+    bucket's one program. Counts ``ba.solves``."""
+    profiling.count("ba.solves")
+    static = dict(n_iterations=n_iterations, damping=damping, huber_delta=huber_delta,
+                  max_obs_per_landmark=max_obs_per_landmark)
+    # The key names max_pairs only where a caller bounds the pair list, so
+    # a map's solve keeps the key that ``_BA_GRAPHS.key`` gives for its four
+    # arguments.
+    if max_pairs is not None:
+        static.update(max_pairs=max_pairs)
+    cameras, landmarks, stats = _BA_GRAPHS(problem, **static)
     return problem._replace(cameras=cameras, landmarks=landmarks), stats
 
 
@@ -934,7 +945,10 @@ class SfmMap:
             lm_in_window = np.zeros(nlm, dtype=bool)
             lm_in_window[self.obs_lm[: self.n_obs][in_window]] = True
             valid[: self.n_obs] &= lm_in_window[self.obs_lm[: self.n_obs]]
-        out, stats = _jit_bundle_adjust(
+        if profiling.enabled():
+            profiling.count("ba.pairs", landmark_pairs(self.obs_lm[:no], valid, nlm,
+                                                       BA_MAX_OBS_PER_LANDMARK))
+        out, stats = replayed_bundle_adjust(
             self._problem(valid, nc, nlm, no, fixed_cameras), c.ba_iterations, c.ba_huber_delta,
         )
         self.cameras[:nc] = _np(out.cameras)

@@ -22,13 +22,19 @@ come back in ms from the first event of the drain window, so a reader
 can take the union of spans across calls.
 
 The port's spans (``sift/extract.py``, ``sift/batched.py``,
-``graphs.py``, ``geometry/``): ``sift.extract`` (device; a facade call
-with its upload and output copies), ``sift.pyramid``, ``sift.detect``,
-``sift.describe``, ``sift.compact`` (the four stages of
+``graphs.py``, ``geometry/``, ``slam/ba.py``): ``sift.extract`` (device;
+a facade call with its upload and output copies), ``sift.pyramid``,
+``sift.detect``, ``sift.describe``, ``sift.compact`` (the four stages of
 ``extract_gray_batch``: device spans around their own graphs in a traced
 replay, host spans when eager), ``geometry`` (``ransac``) and
-``twoview.svd`` (the library SVD that synchronises); the counter
-``graphs.captures`` (programs captured).
+``twoview.svd`` (the library SVD that synchronises), ``ba.prologue``,
+``ba.iteration`` (one a pass of the LM loop) and ``ba.epilogue`` (the
+bundle adjustment's program: device spans in a traced replay, host spans
+when eager); the counters ``graphs.captures`` (programs captured),
+``ba.solves`` (bundle adjustments run) and ``ba.pairs`` (the
+same-landmark observation pairs of their Schur terms, counted by a
+caller that holds the observations on the host: ``slam.ba.
+landmark_pairs``).
 """
 
 from __future__ import annotations

@@ -1386,7 +1386,7 @@ def _gauge(fixed, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_cam, n_lm", [(6, 256), (16, 1024)])
 def test_bundle_adjust_replay_equals_eager_bit_for_bit(cuda_dev, n_cam, n_lm):
-    """SfmMap's BA solve (slam.sfm._jit_bundle_adjust) at two bucket
+    """SfmMap's BA solve (slam.sfm.replayed_bundle_adjust) at two bucket
     shapes: the first call (capture) and a later replay equal the eager
     bundle_adjust in every output bit for bit; the replay plan is the
     prologue, the iteration replayed n times, the epilogue."""
@@ -1396,9 +1396,9 @@ def test_bundle_adjust_replay_equals_eager_bit_for_bit(cuda_dev, n_cam, n_lm):
 
     resolve_device("cuda")
     p = _ba_problem(cuda_dev, n_cam=n_cam, n_lm=n_lm)._replace(fixed_cameras=_gauge(2, cuda_dev))
-    first = sfm._jit_bundle_adjust(p, 8, 2.0)
+    first = sfm.replayed_bundle_adjust(p, 8, 2.0)
     want = bundle_adjust(p, n_iterations=8, huber_delta=2.0)
-    again = sfm._jit_bundle_adjust(p, 8, 2.0)
+    again = sfm.replayed_bundle_adjust(p, 8, 2.0)
     assert _leaves_equal(first, want) and _leaves_equal(again, want)
     assert float(want[1].final_cost) < float(want[1].initial_cost)
     key = sfm._BA_GRAPHS.key(p, n_iterations=8, damping=1e-4, huber_delta=2.0,
@@ -1421,13 +1421,68 @@ def test_windowed_bundle_adjust_replays_one_graph_per_bucket(cuda_dev):
     results = []
     for fixed in (2, 5, 9):
         q = p._replace(fixed_cameras=_gauge(fixed, cuda_dev), valid=p.cam_idx >= fixed - 1)
-        got = sfm._jit_bundle_adjust(q, 6, 2.0)
+        got = sfm.replayed_bundle_adjust(q, 6, 2.0)
         assert _leaves_equal(got, bundle_adjust(q, n_iterations=6, huber_delta=2.0))
         results.append(got[0].cameras)
     assert len(sfm._BA_GRAPHS.graphs) == n0 + 1
     assert not torch.equal(results[0], results[2])
-    sfm._jit_bundle_adjust(_ba_problem(cuda_dev, n_cam=12, n_lm=1024), 6, 2.0)
+    sfm.replayed_bundle_adjust(_ba_problem(cuda_dev, n_cam=12, n_lm=1024), 6, 2.0)
     assert len(sfm._BA_GRAPHS.graphs) == n0 + 2
+
+
+# graphs.captures of examples/video_sfm_torch.py's scene under the tracer
+# (the SIFT replay's programs and the map's BA), counted on the card at the
+# tree before the pair-list Schur assembly: the pair list's capacity follows
+# the map's buckets, so it may add no program.
+VIDEO_SCENE_CAPTURES = 2
+
+
+@pytest.mark.cuda
+def test_bal_solve_replays_bit_equal_without_host_sync(cuda_dev, tmp_path):
+    """The benchmark's BAL problem at 32 cameras and 4,000 points through
+    the map's replayed solve: two replays after the capture equal each
+    other and the first call bit for bit, under set_sync_debug_mode
+    ("error"); the video scene's map captures no more programs than
+    before the pair list."""
+    import json
+    import pathlib
+    import sys
+
+    from portbench.harness.bal_scene import generate
+    from siftmetal_tpu_torch.device import resolve_device
+    from siftmetal_tpu_torch.slam.ba import BAProblem, landmark_pairs
+    from siftmetal_tpu_torch.slam.sfm import replayed_bundle_adjust
+    from siftmetal_tpu_torch.utils import profiling
+
+    resolve_device("cuda")
+    root = pathlib.Path(__file__).resolve().parents[1]
+    config = json.loads((root / "portbench/configs/bal_trafalgar257.json").read_text())
+    bal = generate(dict(config, cameras=32, points=4000, observations=13000), 2 ** 31 + 3, cuda_dev)
+    valid = torch.ones(bal.uv.shape[0], dtype=torch.bool)
+    pairs = landmark_pairs(bal.pt_idx, valid, 4000, 32)
+    p = BAProblem(*(t.to(cuda_dev) for t in (bal.cameras, bal.points, torch.eye(3), bal.cam_idx,
+                                              bal.pt_idx, bal.uv, valid)), fixed_cameras=1)
+    solve = lambda: replayed_bundle_adjust(p, 10, 0.0, max_obs_per_landmark=32, max_pairs=pairs)
+    first = solve()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again, third = solve(), solve()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _leaves_equal(again, first) and _leaves_equal(third, first)
+    stats = first[1]
+    assert int(stats.obs_dropped) == 0 and int(stats.pairs_dropped) == 0
+    assert float(stats.final_cost) < 0.05 * float(stats.initial_cost)
+
+    sys.path.insert(0, str(root))
+    from examples.video_sfm_torch import main as video_scene
+
+    with profiling.tracing():
+        profiling.drain()
+        assert video_scene(tmp_path, "cuda") < 0.1
+        captures = profiling.drain().counters.get("graphs.captures", 0)
+    assert 0 < captures <= VIDEO_SCENE_CAPTURES
 
 
 def _pose_ring(dev):
@@ -1513,8 +1568,8 @@ def test_replay_dispatches_only_input_and_output_copies(cuda_dev):
     p = _ba_problem(cuda_dev)._replace(fixed_cameras=_gauge(2, cuda_dev))
     g, huber = _pose_ring(cuda_dev)
     # (call, its tensor arguments, its program's outputs: cameras,
-    # landmarks and four BAStats; poses and the cost)
-    calls = ((lambda: sfm._jit_bundle_adjust(p, 4, 2.0), p, 6),
+    # landmarks and six BAStats; poses and the cost)
+    calls = ((lambda: sfm.replayed_bundle_adjust(p, 4, 2.0), p, 8),
              (lambda: sfm._jit_optimize_pose_graph(g, 4, huber), (g, huber), 2))
     for call, args, n_out in calls:
         call()

@@ -1,7 +1,7 @@
 """The port's solver and multi-device programs as device programs, on the
 CPU.
 
-On a CUDA device ``slam.sfm._jit_bundle_adjust`` and
+On a CUDA device ``slam.sfm.replayed_bundle_adjust`` and
 ``_jit_optimize_pose_graph``, ``make_distributed_ba``'s ``run`` and the
 sharded extractor and matcher replay CUDA graphs (``graphs.GraphCache``,
 the counterparts of the JAX package's ``jax.jit``s); a graph holds no
@@ -107,18 +107,21 @@ def _unrolled_bundle_adjust(problem, n_iterations, damping=1e-4, huber_delta=0.0
     c_init = PB.cost(problem)
     c0 = PB.grouped_cost(cameras, landmarks, k, g, huber_delta)
     segs = PB.schur_segments(g, c_n)
-    for _ in range(n_iterations):
+    c_first = torch.tensor(float("nan"), dtype=torch.float64)
+    for i in range(n_iterations):
         d_cam, d_lm = PB._gauss_newton_step(cameras, landmarks, k, g, c_n, lam, hd,
                                             problem.fixed_cameras, segs)
         new_cams, new_lms = cameras + d_cam, landmarks + d_lm
         c1 = PB.grouped_cost(new_cams, new_lms, k, g, huber_delta)
+        c_first = c1 if i == 0 else c_first
         accept = c1 < c0
         cameras = torch.where(accept, new_cams, cameras)
         landmarks = torch.where(accept, new_lms, landmarks)
         c0 = torch.where(accept, c1, c0)
         lam = torch.where(accept, lam * 0.5, lam * 10.0).clamp(1e-8, 1e6)
     out = problem._replace(cameras=cameras, landmarks=landmarks)
-    return out, PB.BAStats(c_init, PB.cost(out), problem.valid.sum(dtype=torch.int32), g.dropped)
+    return out, PB.BAStats(c_init, PB.cost(out), problem.valid.sum(dtype=torch.int32), g.dropped,
+                           first_step_cost=c_first)
 
 
 def _unrolled_pose_graph(g, n_iterations, damping=1e-4, huber_delta=0.1):
@@ -174,7 +177,7 @@ def test_tensor_gauge_bundle_adjust_equals_int_and_jax():
     n0 = JS._jit_bundle_adjust._cache_size()
     for fixed in (2, 3):
         by_int = PB.bundle_adjust(_problem(args, fixed), n_iterations=6, huber_delta=2.0)
-        out, stats = PS._jit_bundle_adjust(_problem(args, _tensor(fixed)), 6, 2.0)
+        out, stats = PS.replayed_bundle_adjust(_problem(args, _tensor(fixed)), 6, 2.0)
         assert _bits(out[:7], by_int[0][:7]) and _bits(stats, by_int[1])
         jp = JB.BAProblem(*map(jnp.asarray, args), fixed_cameras=jnp.asarray(fixed))
         jo, js = JS._jit_bundle_adjust(jp, 6, 2.0)
