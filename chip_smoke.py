@@ -368,6 +368,7 @@ def phase_kernels(peaks):
           f"{_ptxas_line(f'detect_kernelILb0ELi5ELi{KD.BAND_ROWS}E')}", flush=True)
     _detect_batch(peaks, gray, cfg)
     _refine_tail_row(reports, peaks, gray, cfg)
+    _describe_glue_rows(reports, peaks, gray, cfg)
     interior = b * (d0.shape[1] - 2) * (H - 2) * (W - 2)
     n_soft = int(cd.n_soft.sum())
     out_bytes = sum(t.numel() * t.element_size() for t in
@@ -781,6 +782,109 @@ def _refine_tail_row(reports, peaks, gray, cfg):
           f"{_ptxas_line('18refine_tail_kernelILb0ELi4')}", flush=True)
     rep.check(0.0)
     reports[rep.row["name"]] = rep
+
+
+def _describe_glue_rows(reports, peaks, gray, cfg):
+    """The describe stage's three glue kernels (``csrc/describe.cu``, one
+    launch each a call) against the PyTorch route each replaces, on the
+    parity batch and on its first frame alone: the keypoint compaction
+    (``compact_keypoints`` against ``compact_keypoints_plain``), the peaks
+    and lanes (``orientation_lanes`` against ``orientation_lanes_plain``)
+    and the quantisation (``quantize_octaves`` against one
+    ``quantize_descriptors`` an octave). Every output bit for bit (the
+    features: the share of equal bytes, and the largest gap). Each
+    kernel's device time beside its byte bound (each input byte it needs
+    read once, each output byte written once) and the route's time on the
+    card. The rows are the batch's."""
+    import torch
+
+    from siftmetal_tpu_torch.ops.kernels import LAUNCHES
+    from siftmetal_tpu_torch.ops.kernels import patches as KP
+    from siftmetal_tpu_torch.sift import describe as DS
+    from siftmetal_tpu_torch.sift import detect as DT
+    from siftmetal_tpu_torch.sift.batched import build_pyramid_batch
+
+    src = "siftmetal_tpu_torch/csrc/describe.cu"
+    glue = "none: XLA glue (siftmetal_tpu/sift/batched.py around the patch kernels)"
+    names = ("keypoint_compact", "lane_peaks", "quantize_rows")
+    for name in names:
+        reports[name] = Report(name, src, glue, 0.0)
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    for frames in (gray, gray[:1]):
+        b = frames.shape[0]
+        gaussians, dogs = build_pyramid_batch(frames, cfg, cfg.num_octaves(*frames.shape[-2:]))
+        per_octave, _ = DT.detect_all_octaves_batch(dogs, cfg)
+        budgets = [DT.keypoint_budget(cfg, tuple(d.shape[-2:]), o) for o, d in enumerate(dogs)]
+        kpcs, dropped = DT.compact_keypoints(per_octave, cfg, budgets)
+        fields = [KP.prepare_patch_fields(g, cfg) for g in gaussians]
+        hist = KP.orientation_hist_octaves(fields, kpcs, cfg)
+        lanes, _ = DS.orientation_lanes(hist, kpcs, cfg, dropped)
+        flat = lambda a: a.reshape(-1)
+        raws = [KP.descriptor_lanes(f, flat(ln.scale), flat(ln.x_oct), flat(ln.y_oct),
+                                    flat(ln.sigma_oct), flat(ln.theta), cfg,
+                                    valid=flat(ln.valid), frame=flat(ln.frame))
+                for f, ln in zip(fields, lanes)]
+        n_kp = int(sum(k.valid.sum() for k in kpcs))
+        n_lane = int(sum(ln.valid.sum() for ln in lanes))
+        slots = sum(kp.scale.numel() for kp in per_octave)
+        # Bytes: the keypoint scan reads two flags a slot and nine fields of
+        # each kept slot, and writes its outputs; the lane pass reads the
+        # histogram and eight fields of each valid keypoint, and writes its
+        # lanes; the quantisation reads the raw rows and writes the bytes.
+        calls = {
+            "keypoint_compact": (
+                lambda: DT.compact_keypoints(per_octave, cfg, budgets),
+                lambda: DT.compact_keypoints_plain(per_octave, cfg, budgets),
+                2 * slots + 36 * n_kp + nbytes([t for k in kpcs for t in k]) + 4 * b),
+            "lane_peaks": (
+                lambda: DS.orientation_lanes(hist, kpcs, cfg, dropped),
+                lambda: DS.orientation_lanes_plain(hist, kpcs, cfg, dropped),
+                n_kp * (4 * hist.shape[-1] + 29) + nbytes([t for ln in lanes for t in ln]) + 4 * b),
+            "quantize_rows": (
+                lambda: DS.quantize_octaves(raws, cfg),
+                lambda: [DS.quantize_descriptors(r, cfg) for r in raws],
+                nbytes(raws) * 5 // 4),
+        }
+        frag = {"keypoint_compact": "keypoint_compact_kernel", "lane_peaks": "lane_peaks_kernel",
+                "quantize_rows": "quantize_rows_kernel"}
+        for name, (kernel, plain, moved) in calls.items():
+            n0 = LAUNCHES[name]
+            got, want = kernel(), plain()
+            _require(LAUNCHES[name] == n0 + 1, f"{name}: not one launch a call")
+            if name == "quantize_rows":
+                g = torch.cat([flat(a) for a in got]).int()
+                w = torch.cat([flat(a) for a in want]).int()
+                gap = int((g - w).abs().max())
+                equal = float((g == w).double().mean())
+                _require(gap <= 1 and equal >= 0.9999,
+                         f"quantize_rows: {equal:.6f} of the bytes equal, largest gap {gap}")
+                how = (f"features equal to the route's in {100 * equal:.4f}% of the bytes "
+                       f"(largest gap {gap} level)")
+            else:
+                parts = [*((x, y) for a, c in zip(got[0], want[0]) for x, y in zip(a, c)),
+                         (got[1], want[1])]
+                bad = sum(not _same_bits(x, y) for x, y in parts)
+                _require(not bad, f"{name}: {bad} of {len(parts)} outputs differ from the route's")
+                how = f"all {len(parts)} outputs equal to the route's bit for bit"
+            dev = _device_ms(kernel, (frag[name],), 5)[frag[name]]
+            plain_dev = _device_ms(plain, ("",), 3)[""]
+            queued, host, plain_host = _queued_ms(kernel), _time_ms(kernel, 10), _time_ms(plain, 3)
+            bound = moved / peaks[0] * 1e3
+            print(f"[kernel] {name} at {b}x{frames.shape[1]}x{frames.shape[2]} ({len(dogs)} octaves, "
+                  f"{slots} keypoint slots, {n_kp} keypoints, {n_lane} lanes): {how}; kernel "
+                  f"{dev:.4f} ms of device time, queued {queued:.4f} ms, host's clock {host:.4f} "
+                  f"ms; bound {bound:.4f} ms ({moved / 1e6:.2f} MB); PyTorch route {plain_host:.4f} "
+                  f"ms on the host's clock, {plain_dev:.4f} ms of device time", flush=True)
+            if b == gray.shape[0]:
+                rep = reports[name]
+                rep.row["ms"], rep.row["plain_ms"] = queued, plain_host
+                rep.bound(moved, 0.0, peaks)
+    print(f"[kernel] describe glue: {_ptxas_line('23keypoint_compact_kernel')}; "
+          f"{_ptxas_line('17lane_peaks_kernelILi36ELi4E')}; "
+          f"{_ptxas_line('17lane_peaks_kernelILi0ELi0E')}; "
+          f"{_ptxas_line('20quantize_rows_kernelILb1E')}", flush=True)
+    for name in names:
+        reports[name].check(0.0)
 
 
 def _cascade_row(reports, peaks, first, cfg, o, bf16):
@@ -1307,7 +1411,8 @@ def _rotated_samples(d_args, valid, H, W, cfg):
 
 
 PARITY_KERNELS = ("seed_octave", "octave_oneshot", "blur_cascade", "detect_candidates",
-                  "refine_tail", "orientation_hist", "descriptor_hist")
+                  "refine_tail", "orientation_hist", "descriptor_hist", "keypoint_compact",
+                  "lane_peaks", "quantize_rows")
 # Pyramid launches of one 640x480 extract_batch: fused seed, one-shot
 # octaves 1-2, one cascade launch each for octaves 3-6 (parity); fused
 # seed, one-shot octave 1, cascades of octaves 2-5 (fast preset).
@@ -1322,6 +1427,10 @@ LEAN_DETECT = {"detect_candidates": 0, "detect_candidates_lean": 1, "refine_tail
 # Orientation launches of one extract_batch (staged describe stage): every
 # octave in one launch.
 ONE_ORIENTATION = {"orientation_hist": 1}
+# The describe stage's glue launches of one extract_batch (staged; the
+# fused form has no lane pass).
+DESCRIBE_GLUE = {"keypoint_compact": 1, "lane_peaks": 1, "quantize_rows": 1}
+FUSED_GLUE = {"keypoint_compact": 1, "lane_peaks": 0, "quantize_rows": 1}
 
 
 def _require_launches(tag, launches, want, what="pyramid"):
@@ -1581,6 +1690,7 @@ def phase_main_path(reports, smi_line):
     _require_launches("main", launches, PARITY_PYRAMID)
     _require_launches("main", launches, PARITY_DETECT, "detection")
     _require_launches("main", launches, ONE_ORIENTATION, "orientation")
+    _require_launches("main", launches, DESCRIBE_GLUE, "describe glue")
     # Frame 0 alone gives frame 0's batched result.
     _, d1, c1 = sift.extract(x[0])
     _require(all(int(c1[k]) == ctr[k][0] for k in c1), "batched != single-frame counters")
@@ -1676,6 +1786,7 @@ def phase_fast_path(reports, parity_ctr, smi_line):
     _require_launches("fast", fl, FAST_PYRAMID)
     _require_launches("fast", fl, PARITY_DETECT, "detection")
     _require_launches("fast", fl, ONE_ORIENTATION, "orientation")
+    _require_launches("fast", fl, DESCRIBE_GLUE, "describe glue")
     nq = sift.config.max_descriptors
     for (i, j), (mt, score) in zip(pairs, matched):
         _require(mt.target_idx.shape == (nq,) and mt.target_idx.dtype == torch.int32,
@@ -1754,6 +1865,7 @@ def phase_fast_path(reports, parity_ctr, smi_line):
         _require_launches(tag, vl, LEAN_DETECT if tag == "lean" else PARITY_DETECT, "detection")
         if tag != "fused":
             _require_launches(tag, vl, ONE_ORIENTATION, "orientation")
+        _require_launches(tag, vl, FUSED_GLUE if tag == "fused" else DESCRIBE_GLUE, "describe glue")
         stages = ("n_extrema", "n_soft", "n_interp", "n_hard", "n_edge", "n_border")
         if tag == "cascade":
             # Another order of the same blurs: counts within 1% of the
@@ -2513,6 +2625,7 @@ def _parallel_extraction(mesh, smi_line):
     _require_launches("parallel", launches, PARITY_PYRAMID)
     _require_launches("parallel", launches, PARITY_DETECT, "detection")
     _require_launches("parallel", launches, ONE_ORIENTATION, "orientation")
+    _require_launches("parallel", launches, DESCRIBE_GLUE, "describe glue")
     kps, descs, ctr = out["result"]
     rk, rd, rc = ref
     for name, a, b in zip(kps._fields + descs._fields, (*kps, *descs), (*rk, *rd)):

@@ -37,8 +37,11 @@ _F = ctypes.c_float
 
 # Per-source extra nvcc flags. detect.cu keeps every multiply and add
 # separately rounded so its Taylor step matches the plain version bit
-# for bit (the 0.6 convergence bound and the edge ratio flip on last bits).
-EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"detect": ("-fmad=false",)}
+# for bit (the 0.6 convergence bound and the edge ratio flip on last bits);
+# describe.cu so that its peaks and quantisation round as the PyTorch
+# route's separate kernels do.
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"detect": ("-fmad=false",),
+                                           "describe": ("-fmad=false",)}
 
 # C signatures: library -> {function: argtypes}; every function returns int.
 SIGNATURES: Dict[str, Dict[str, List]] = {
@@ -91,6 +94,16 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # sigma, theta, radius, tile, n_hist, n_ori, lam, out, stream
         "descriptor_hist_banded": [_P, _P, _I, _I, _I, _I] + [_P] * 10
                                   + [_I, _I, _I, _I, _F, _P, _P],
+    },
+    "describe": {
+        # table (the launch's int64 host table), inv_delta (float32 host
+        # table), total, valid, scale, reals, dropped, stream
+        "keypoint_compact_octaves": [_P, _P, ctypes.c_longlong] + [_P] * 5,
+        # table (int64 host table), consts (float32 host table), total,
+        # valid, ints, reals, dropped, stream
+        "lane_peaks_octaves": [_P, _P, ctypes.c_longlong] + [_P] * 5,
+        # table (int64 host table), D, rows, out, stream
+        "quantize_rows": [_P, _I, ctypes.c_longlong, _P, _P],
     },
 }
 

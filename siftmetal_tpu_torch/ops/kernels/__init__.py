@@ -39,6 +39,9 @@ LAUNCHES: Dict[str, int] = {
     "blur_cascade": 0,
     "blur_cascade_bf16": 0,
     "refine_tail": 0,
+    "keypoint_compact": 0,
+    "lane_peaks": 0,
+    "quantize_rows": 0,
 }
 
 
@@ -61,6 +64,9 @@ KERNEL_GROUPS: Dict[str, Tuple[str, ...]] = {
     r"\bresident_orientation_kernel\b": ("orientation_hist_banded",),
     r"\bresident_descriptor_kernel<": ("descriptor_hist_banded",),
     r"\brefine_tail_kernel<": ("refine_tail",),
+    r"\bkeypoint_compact_kernel\b": ("keypoint_compact",),
+    r"\blane_peaks_kernel<": ("lane_peaks",),
+    r"\bquantize_rows_kernel<": ("quantize_rows",),
 }
 
 

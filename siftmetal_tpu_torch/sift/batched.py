@@ -15,7 +15,10 @@ detection and describe variants; ``use_band_patches`` sends the two staged
 patch stages through their resident-tile kernels (inside the wrappers; the
 fused form has none, as in the JAX package). On a CUDA device every kernel wrapper
 launches its kernel; on the CPU the same wrappers run their plain
-versions. Per-frame counters come back with a leading [B] axis.
+versions. The describe stage's bookkeeping between the patch kernels (the
+keypoint compaction, the peaks and lane compaction, the quantisation) is
+one such wrapper each (``csrc/describe.cu``). Per-frame counters come back
+with a leading [B] axis.
 """
 
 from __future__ import annotations
@@ -101,103 +104,66 @@ def extract_gray_batch(
 
 
 def _describe_octaves(gaussians, dogs, per_octave, config: SiftConfig):
-    """Orientation and descriptor stages of every octave: every octave's
-    keypoint compaction and gradient fields, the raw orientation
-    histograms of all octaves in one launch, one smoothing and peak pass
-    over them, then per-octave lane compaction and descriptors."""
+    """Orientation and descriptor stages of every octave: the keypoint
+    compaction of all octaves and each octave's gradient fields, the raw
+    orientation histograms of all of them in one launch, the smoothing,
+    peaks and lane compaction of all of them, the descriptors an octave,
+    then the quantisation of all of them. On a card the compactions, peaks
+    and quantisation are one launch each (``csrc/describe.cu``)."""
     b = gaussians[0].shape[0]
-    dev = gaussians[0].device
-    n_octaves = len(gaussians)
-
-    lane_overflow = torch.zeros((b,), dtype=torch.int32, device=dev)
-    # Phase A: every octave's keypoint compaction and fields, then the raw
-    # orientation histograms of all of them (or, fused, the whole describe
-    # stage of each octave in one kernel: no lane compaction, rows carry
-    # the peaks' validity).
-    kpcs, fields_all, budgets = [], [], []
-    for o in range(n_octaves):
-        h, w = dogs[o].shape[-2:]
-        budget = _detect.keypoint_budget(config, (h, w), o)
-        kpc, kp_dropped = _detect.compact_octave_keypoints(
-            per_octave[o], o, config, budget
-        )
-        lane_overflow = lane_overflow + kp_dropped
-        kpcs.append(kpc)
-        fields_all.append(prepare_patch_fields(gaussians[o], config))
-        budgets.append(budget)
+    budgets = [_detect.keypoint_budget(config, tuple(d.shape[-2:]), o)
+               for o, d in enumerate(dogs)]
+    kpcs, lane_overflow = _detect.compact_keypoints(per_octave, config, budgets)
+    fields_all = [prepare_patch_fields(g, config) for g in gaussians]
     if config.use_fused_describe:
-        desc_rows = []
-        for o, (kpc, fields, budget) in enumerate(zip(kpcs, fields_all, budgets)):
-            frame_kp = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(budget)
-            desc_rows.append(_fused_rows(o, kpc, fields, frame_kp, config))
-        return desc_rows, lane_overflow
+        # The whole describe stage of each octave in one kernel: no lane
+        # compaction, rows carry the peaks' validity.
+        fused = [_fused_rows(o, kpc, fields, config)
+                 for o, (kpc, fields) in enumerate(zip(kpcs, fields_all))]
+        feats = _describe.quantize_octaves([raw for raw, _ in fused], config)
+        return [dict(rows, features=f.reshape(b, rows["x"].shape[1], -1))
+                for (_, rows), f in zip(fused, feats)], lane_overflow
     hist_all = orientation_hist_octaves(fields_all, kpcs, config)
-    # Smoothing + peak detection once over every octave's lanes.
-    hist_all = _describe._smooth_circular(
-        hist_all, config.orientation_smoothing_iterations
-    )
-    theta_all, ov_all = _describe.orientation_peaks(hist_all, config)
-
-    # Phase B: per-octave (keypoint, orientation) lane compaction +
-    # descriptors.
-    off = 0
-    desc_rows = []
-    for o, (budget, kpc, fields) in enumerate(zip(budgets, kpcs, fields_all)):
-        theta = theta_all[:, off:off + budget]
-        ori_valid = ov_all[:, off:off + budget] & kpc.valid[:, :, None]
-        off += budget
-        m = theta.shape[-1]
-        lane_valid = ori_valid.reshape(b, budget * m)
-        n_lanes = (budget * 3 // 2 + 127) // 128 * 128
-        order, count, dropped = _detect.compact_indices(lane_valid, n_lanes)
-        slot_valid = torch.arange(n_lanes, device=dev)[None, :] < count[:, None]
-        lane_overflow = lane_overflow + dropped
-
-        rep = lambda a: torch.gather(a.repeat_interleave(m, dim=1), 1, order)
-        theta_l = torch.gather(theta.reshape(b, budget * m), 1, order)
-        frame_ln = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(n_lanes)
-        flatl = lambda a: a.reshape(b * n_lanes)
-        raw = descriptor_lanes(
-            fields, flatl(rep(kpc.scale)), flatl(rep(kpc.x_oct)),
-            flatl(rep(kpc.y_oct)), flatl(rep(kpc.sigma_oct)), flatl(theta_l),
-            config, valid=flatl(slot_valid), frame=frame_ln,
+    lanes, lane_overflow = _describe.orientation_lanes(hist_all, kpcs, config, lane_overflow)
+    flat = lambda a: a.reshape(-1)
+    raws = [
+        descriptor_lanes(
+            fields, flat(ln.scale), flat(ln.x_oct), flat(ln.y_oct), flat(ln.sigma_oct),
+            flat(ln.theta), config, valid=flat(ln.valid), frame=flat(ln.frame),
         )
-        feats = _describe.quantize_descriptors(raw, config).reshape(b, n_lanes, -1)
-        desc_rows.append(
-            dict(
-                valid=slot_valid,
-                octave=torch.full((b, n_lanes), o, dtype=torch.int32, device=dev),
-                x=rep(kpc.x),
-                y=rep(kpc.y),
-                sigma=rep(kpc.sigma),
-                theta=theta_l,
-                features=feats,
-            )
-        )
+        for fields, ln in zip(fields_all, lanes)
+    ]
+    feats = _describe.quantize_octaves(raws, config)
+    desc_rows = [
+        dict(valid=ln.valid, octave=ln.octave, x=ln.x, y=ln.y, sigma=ln.sigma, theta=ln.theta,
+             features=f.reshape(b, ln.valid.shape[1], -1))
+        for ln, f in zip(lanes, feats)
+    ]
     return desc_rows, lane_overflow
 
 
-def _fused_rows(o: int, kpc, fields, frame_kp, config: SiftConfig):
-    """Octave ``o``'s descriptor rows from the fused orientation+descriptor
-    kernel: ``max_ori`` rows per keypoint slot, no lane compaction; a row
-    is valid where its keypoint had that peak."""
+def _fused_rows(o: int, kpc, fields, config: SiftConfig):
+    """Octave ``o``'s raw descriptors and descriptor rows (all but the
+    features) from the fused orientation+descriptor kernel: ``max_ori``
+    rows per keypoint slot, no lane compaction; a row is valid where its
+    keypoint had that peak."""
     b, budget = kpc.valid.shape
     m = config.max_orientations_per_keypoint
     flat = lambda a: a.reshape(b * budget)
+    frame_kp = torch.arange(b, dtype=torch.int32, device=kpc.valid.device).repeat_interleave(budget)
     raw, theta, ov = orient_desc_lanes(
         fields, flat(kpc.scale), flat(kpc.x_oct), flat(kpc.y_oct),
         flat(kpc.sigma_oct), config, valid=flat(kpc.valid), frame=frame_kp,
     )
     n_lanes = budget * m
     rep = lambda a: a.repeat_interleave(m, dim=1)
-    return dict(
+    return raw, dict(
         valid=(ov.reshape(b, budget, m) & kpc.valid[:, :, None]).reshape(b, n_lanes),
         octave=torch.full((b, n_lanes), o, dtype=torch.int32, device=theta.device),
         x=rep(kpc.x),
         y=rep(kpc.y),
         sigma=rep(kpc.sigma),
         theta=theta.reshape(b, n_lanes),
-        features=_describe.quantize_descriptors(raw, config).reshape(b, n_lanes, -1),
     )
 
 

@@ -9,17 +9,25 @@ chunks of the valid lanes.
 Gradient convention: th = atan2(d/dcol, d/drow), IPOL's atan2(gy, gx)
 with x = row. Samples outside the image have zero gradient, so they add
 nothing (IPOL skips them).
+
+:func:`orientation_lanes` (smoothing, peaks and each octave's lane
+compaction) and :func:`quantize_octaves` run their PyTorch route on CPU
+tensors and one launch of ``csrc/describe.cu`` each on CUDA tensors,
+equal to it bit for bit.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..config import SiftConfig
+from ..ops.kernels import use_kernel
+from ..ops.kernels.describe import lane_peaks_octaves, quantize_rows
+from .detect import compact_indices
 
 _TWO_PI = 2.0 * math.pi
 
@@ -120,6 +128,112 @@ def quantize_descriptors(raw: torch.Tensor, config: SiftConfig) -> torch.Tensor:
     norm2 = torch.linalg.vector_norm(clipped, dim=-1, keepdim=True)
     q = torch.floor(512.0 * clipped / torch.clamp(norm2, min=1e-12))
     return torch.clamp(q, max=255.0).to(torch.uint8)
+
+
+def quantize_octaves(raws: Sequence[torch.Tensor], config: SiftConfig) -> List[torch.Tensor]:
+    """:func:`quantize_descriptors` of every raw descriptor array of
+    ``raws`` (one an octave): one call each on CPU tensors; one launch of
+    ``csrc/describe.cu`` ``quantize_rows_kernel`` over all of them on CUDA
+    tensors (no fallback), equal to it bit for bit; raises for any other
+    device."""
+    if not use_kernel(raws[0], "quantize_rows"):
+        return [quantize_descriptors(raw, config) for raw in raws]
+    return quantize_rows(raws)
+
+
+class DescribeLanes(NamedTuple):
+    """One octave's (keypoint, orientation) lanes [B, n_lanes], in
+    ascending (keypoint, peak) order: the staged descriptor kernel's lane
+    arrays and the descriptor rows' fields. Lanes past a frame's count
+    hold pair 0's values (keypoint 0, its first theta) and are not valid."""
+
+    valid: torch.Tensor      # bool
+    frame: torch.Tensor      # int32 — the lane's frame
+    octave: torch.Tensor     # int32
+    scale: torch.Tensor      # int32 — the keypoint's fields, as compacted
+    x_oct: torch.Tensor      # f32
+    y_oct: torch.Tensor      # f32
+    sigma_oct: torch.Tensor  # f32
+    theta: torch.Tensor      # f32 — the peak's orientation
+    x: torch.Tensor          # f32
+    y: torch.Tensor          # f32
+    sigma: torch.Tensor      # f32
+
+
+def lane_count(budget: int) -> int:
+    """Lane slots of an octave of ``budget`` keypoint slots: 1.5 a slot,
+    in multiples of 128."""
+    return (budget * 3 // 2 + 127) // 128 * 128
+
+
+def orientation_lanes(
+    hist: torch.Tensor, kpcs: Sequence, config: SiftConfig, dropped: torch.Tensor
+) -> Tuple[List[DescribeLanes], torch.Tensor]:
+    """Raw orientation histograms [B, sum of budgets, n_bins] of every
+    octave's compacted keypoints ``kpcs`` -> each octave's lanes and
+    ``dropped`` [B] plus the lanes that did not fit:
+    :func:`orientation_lanes_plain` on CPU tensors; one launch of
+    ``csrc/describe.cu`` ``lane_peaks_kernel`` on CUDA tensors
+    (``lane_peaks_octaves``, no fallback), equal to it bit for bit; raises
+    for any other device. The lanes are views of the launch's buffers."""
+    if not use_kernel(hist, "lane_peaks"):
+        return orientation_lanes_plain(hist, kpcs, config, dropped)
+    b = hist.shape[0]
+    lanes = [lane_count(k.valid.shape[1]) for k in kpcs]
+    valid, ints, reals, dropped = lane_peaks_octaves(
+        hist, kpcs, lanes, dropped,
+        smoothing_iterations=config.orientation_smoothing_iterations,
+        peak_threshold=config.orientation_peak_threshold,
+        max_ori=config.max_orientations_per_keypoint)
+    sizes = [b * n for n in lanes]
+    out = []
+    for v, i, r, n in zip(valid.split(sizes), ints.split(sizes, dim=1),
+                          reals.split(sizes, dim=1), lanes):
+        scale, frame, octave = i.view(-1, b, n).unbind(0)
+        x_oct, y_oct, sigma_oct, theta, x, y, sigma = r.view(-1, b, n).unbind(0)
+        out.append(DescribeLanes(v.view(b, n), frame, octave, scale, x_oct, y_oct, sigma_oct,
+                                 theta, x, y, sigma))
+    return out, dropped
+
+
+def orientation_lanes_plain(
+    hist: torch.Tensor, kpcs: Sequence, config: SiftConfig, dropped: torch.Tensor
+) -> Tuple[List[DescribeLanes], torch.Tensor]:
+    """The PyTorch route of :func:`orientation_lanes`: the smoothing and the
+    peaks of every octave's rows at once, then per octave the (keypoint,
+    peak) lane compaction into :func:`lane_count` slots and the gathers of
+    the keypoints' fields."""
+    b = hist.shape[0]
+    dev = hist.device
+    hist = _smooth_circular(hist, config.orientation_smoothing_iterations)
+    theta_all, ov_all = orientation_peaks(hist, config)
+    m = theta_all.shape[-1]
+    off = 0
+    out = []
+    for o, kpc in enumerate(kpcs):
+        budget = kpc.valid.shape[1]
+        theta = theta_all[:, off:off + budget]
+        ori_valid = ov_all[:, off:off + budget] & kpc.valid[:, :, None]
+        off += budget
+        n_lanes = lane_count(budget)
+        order, count, lane_dropped = compact_indices(ori_valid.reshape(b, budget * m), n_lanes)
+        dropped = dropped + lane_dropped
+        rep = lambda a: torch.gather(a.repeat_interleave(m, dim=1), 1, order)
+        frame = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(n_lanes)
+        out.append(DescribeLanes(
+            valid=torch.arange(n_lanes, device=dev)[None, :] < count[:, None],
+            frame=frame.reshape(b, n_lanes),
+            octave=torch.full((b, n_lanes), o, dtype=torch.int32, device=dev),
+            scale=rep(kpc.scale),
+            x_oct=rep(kpc.x_oct),
+            y_oct=rep(kpc.y_oct),
+            sigma_oct=rep(kpc.sigma_oct),
+            theta=torch.gather(theta.reshape(b, budget * m), 1, order),
+            x=rep(kpc.x),
+            y=rep(kpc.y),
+            sigma=rep(kpc.sigma),
+        ))
+    return out, dropped
 
 
 # --- plain patch histograms (the patch kernels' plain versions) -------------

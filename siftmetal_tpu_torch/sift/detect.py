@@ -25,6 +25,7 @@ import torch
 
 from ..config import SiftConfig
 from ..ops.kernels import use_kernel
+from ..ops.kernels.describe import keypoint_compact_octaves
 from ..ops.kernels.detect import (
     TAIL_COUNTERS,
     Candidates,
@@ -174,6 +175,42 @@ def compact_octave_keypoints(
         sigma=take(kp.sigma),
         value=take(kp.value),
     ), dropped
+
+
+def compact_keypoints(
+    per_octave: Sequence[OctaveKeypoints], config: SiftConfig, budgets: Sequence[int]
+) -> Tuple[List[CompactOctaveKeypoints], torch.Tensor]:
+    """Every octave's keypoint compaction into ``budgets[o]`` slots and the
+    slots dropped in all of them ([B] int32): :func:`compact_keypoints_plain`
+    on CPU tensors; one launch of ``csrc/describe.cu``
+    ``keypoint_compact_kernel`` on CUDA tensors (``keypoint_compact_octaves``,
+    no fallback), equal to it bit for bit; raises for any other device. The
+    compacted fields are views of the launch's three buffers."""
+    if not use_kernel(per_octave[0].scale, "keypoint_compact"):
+        return compact_keypoints_plain(per_octave, config, budgets)
+    b = per_octave[0].scale.shape[0]
+    valid, scale, reals, dropped = keypoint_compact_octaves(
+        per_octave, budgets, [config.octave_delta(o) for o in range(len(per_octave))])
+    sizes = [b * n for n in budgets]
+    kpcs = [CompactOctaveKeypoints(v.view(b, n), s.view(b, n), *r.view(-1, b, n).unbind(0))
+            for v, s, r, n in zip(valid.split(sizes), scale.split(sizes),
+                                  reals.split(sizes, dim=1), budgets)]
+    return kpcs, dropped
+
+
+def compact_keypoints_plain(
+    per_octave: Sequence[OctaveKeypoints], config: SiftConfig, budgets: Sequence[int]
+) -> Tuple[List[CompactOctaveKeypoints], torch.Tensor]:
+    """The PyTorch route of :func:`compact_keypoints`: one
+    :func:`compact_octave_keypoints` an octave, the dropped slots summed."""
+    scale = per_octave[0].scale
+    dropped = torch.zeros((scale.shape[0],), dtype=torch.int32, device=scale.device)
+    kpcs = []
+    for o, (kp, budget) in enumerate(zip(per_octave, budgets)):
+        kpc, kp_dropped = compact_octave_keypoints(kp, o, config, budget)
+        dropped = dropped + kp_dropped
+        kpcs.append(kpc)
+    return kpcs, dropped
 
 
 def gather_keypoints(
